@@ -1,0 +1,48 @@
+"""strsim_tpu_torch: the tpu-strsim engine in PyTorch, with hand-written CUDA
+kernels for an NVIDIA Hopper GPU.
+
+The five normalized similarity measures of polars-strsim (Levenshtein, Jaro,
+Jaro-Winkler, Jaccard, Sorensen-Dice) over paired string columns, with f64
+scores bit-for-float identical to the reference and to `strsim_tpu`:
+
+  strings -> UCS4 codepoint tiles (utils/encode.py)
+          -> length buckets, padded [B, L] int8/int32 batches (models/pipeline.py)
+          -> integer stats on the device (ops/stats.py: CUDA kernels in csrc/,
+             their plain torch versions on CPU tensors)
+          -> exact f64 finalize on the host (ops/finalize.py).
+
+The default config runs on "cuda" and raises without a GPU; pass
+StrsimConfig(device="cpu") to run the plain torch versions. This package
+never imports jax or strsim_tpu.
+"""
+from strsim_tpu_torch.api import (
+    Literal,
+    compute,
+    compute_many,
+    compute_with_validity,
+    jaccard,
+    jaro,
+    jaro_winkler,
+    levenshtein,
+    lit,
+    sorensen_dice,
+)
+from strsim_tpu_torch.config import StrsimConfig, get_config, set_config
+from strsim_tpu_torch.models.measures import MEASURES
+
+__all__ = [
+    "levenshtein",
+    "jaro",
+    "jaro_winkler",
+    "jaccard",
+    "sorensen_dice",
+    "compute",
+    "compute_many",
+    "compute_with_validity",
+    "lit",
+    "Literal",
+    "StrsimConfig",
+    "get_config",
+    "set_config",
+    "MEASURES",
+]

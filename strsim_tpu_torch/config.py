@@ -1,0 +1,81 @@
+"""Engine configuration for the PyTorch/CUDA engine.
+
+Same knobs as `strsim_tpu.config.StrsimConfig` for everything the main path
+reads: the bucket ladder, the overflow/extend policy, batch rounding, tile
+narrowing, the equal fast path and the small-input host short-circuit. The
+TPU-only fields (mesh, compile and execute deadlines, host fallbacks, Pallas
+block rows, per-family kernel overrides) have no counterpart: kernels here
+are chosen by bucket width and tile dtype (`ops/stats.py`), and a kernel that
+fails to build or launch raises instead of falling back.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class StrsimConfig:
+    # Length buckets (chars): a row pair lands in the smallest edge that fits
+    # max(len_a, len_b). ~1.5x ladder caps padded-length waste on the O(L^2)
+    # stats; the same edges as the JAX engine so both bucket identically.
+    buckets: Tuple[int, ...] = (7, 15, 23, 31, 47, 63, 95, 127, 191, 255, 383, 511)
+
+    # Rows longer than the largest bucket: "oracle" scores them on the host
+    # with the pure-Python oracle; "extend" grows ad-hoc 2L+1 buckets up to
+    # max_extend_len, computed on the device by the plain torch stats.
+    overflow_policy: str = "extend"
+    max_extend_len: int = 16384
+
+    # Bucket batches are padded up to a size from a small menu
+    # (models/pipeline.py:_BATCH_MENU); padded rows are zero-length.
+    min_batch: int = 8
+    max_batch_block: int = 262144
+
+    # Buckets whose codepoints are all ASCII ship as int8 tiles (4x less
+    # host->device traffic) and take the histogram multiset kernel when wide.
+    narrow_tiles: bool = True
+
+    # Byte-equal pairs score 1.0 on the host without touching the device
+    # (the reference's a == b fast path, strsim.rs:128).
+    equal_fast_path: bool = True
+
+    # When at most this many rows need kernel math, score them on the host
+    # (pure-Python oracle) instead: a size policy for tiny inputs, not a
+    # fallback. Off (0) by default: the JAX engine's 8192 pays for a TPU
+    # compile with its native C++ host path, while here the kernels are
+    # prebuilt and the host path is the pure-Python oracle, slower than a
+    # launch for all but a few rows (tools/profile_torch_e2e.py measures the
+    # crossover).
+    host_short_circuit_rows: int = 0
+
+    # torch device for the stat kernels. "cuda" raises when no GPU is
+    # present; "cpu" runs the plain torch versions of every kernel.
+    device: str = "cuda"
+
+    def bucket_for(self, max_len: int) -> int:
+        for edge in self.buckets:
+            if max_len <= edge:
+                return edge
+        if self.overflow_policy == "extend":
+            edge = self.buckets[-1]
+            while edge < max_len and edge <= self.max_extend_len:
+                edge = edge * 2 + 1
+            if max_len <= edge and edge <= self.max_extend_len:
+                return edge
+        return -1  # caller scores the row on the host
+
+    def replace(self, **kw) -> "StrsimConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_CONFIG = StrsimConfig()
+
+
+def get_config() -> StrsimConfig:
+    return _CONFIG
+
+
+def set_config(config: StrsimConfig) -> None:
+    global _CONFIG
+    _CONFIG = config

@@ -1,0 +1,290 @@
+"""End-to-end scoring pipeline: string columns -> bucketed device batches ->
+scores. The counterpart of `strsim_tpu/models/pipeline.py:compute_scores`:
+
+  1. validate shapes and broadcast a length-1 side (strsim.rs:48-52, 61-66);
+  2. resolve null, both-empty, byte-equal and one-empty rows on the host;
+  3. bucket the remaining rows by max(len_a, len_b) onto the ladder, narrow
+     pure-ASCII buckets to int8, sort each bucket by la + lb, pad it to a
+     size from the batch menu, upload it once and run the stat kernels
+     (ops/stats.py) block by block;
+  4. download the integer stats, finalize exact f64 scores on the host in the
+     reference's order and scatter them back to row order.
+
+There is no fallback: a kernel that fails to build or launch raises, and
+`device="cuda"` raises when no GPU is present. Rows beyond the ladder (with
+overflow_policy="oracle" or past max_extend_len) and inputs under
+`host_short_circuit_rows` are scored on the host by the oracle, by design.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from strsim_tpu_torch.config import StrsimConfig, get_config
+from strsim_tpu_torch.models.measures import MEASURES, resolve_measures
+from strsim_tpu_torch.ops.stats import STAT_FIELDS, compute_stats, multiset_route
+from strsim_tpu_torch.utils import encode as enc
+from strsim_tpu_torch.utils.encode import EncodedColumn
+from strsim_tpu_torch.utils.metrics import timer
+
+_BATCH_MENU = (512, 4096, 16384, 32768, 65536)
+
+
+def _round_batch(n: int, cfg: StrsimConfig) -> int:
+    """Round a bucket batch up to a size from a small fixed menu, bounding the
+    padded-row waste (the same menu as the JAX engine)."""
+    for b in _BATCH_MENU:
+        if n <= b and b <= cfg.max_batch_block:
+            return b
+    return cfg.max_batch_block
+
+
+def _block_rows(width: int, cfg: StrsimConfig, measures: Tuple[str, ...], dtype) -> int:
+    """Max rows per stat call, a power of two. The plain multiset form (wide
+    int32 and extend buckets) holds a [rows, 16, L] compare tensor, so its
+    blocks are capped at 2^28 elements; the kernels hold O(rows) state."""
+    cap = cfg.max_batch_block
+    need_multiset = any("inter" in STAT_FIELDS[m] for m in measures)
+    if need_multiset and multiset_route(width, _torch_dtype(dtype)) == "plain":
+        cap = min(cap, max(cfg.min_batch, (1 << 28) // max(16 * width, 1)))
+    b = cfg.min_batch
+    while b * 2 <= cap:
+        b *= 2
+    return b
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.int8 if np.dtype(dtype) == np.int8 else torch.int32
+
+
+def _stat_fields(measures: Tuple[str, ...]) -> Tuple[str, ...]:
+    return tuple(sorted({f for m in measures for f in STAT_FIELDS[m]}))
+
+
+def _device(cfg: StrsimConfig) -> torch.device:
+    device = torch.device(cfg.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"StrsimConfig.device={cfg.device!r} but no CUDA device is available; "
+            "pass a config with device='cpu' to run the plain torch stats"
+        )
+    return device
+
+
+def _broadcast_pair(
+    a: EncodedColumn, b: EncodedColumn
+) -> Tuple[EncodedColumn, EncodedColumn]:
+    """Replicate a length-1 side to match the other (literal broadcast,
+    strsim.rs:61-66). A null literal is an error (the reference panics on it,
+    strsim.rs:62,65; this raises instead)."""
+    if a.n == b.n:
+        return a, b
+    if b.n == 1:
+        small, big, which = b, a, "b"
+    elif a.n == 1:
+        small, big, which = a, b, "a"
+    else:
+        raise ValueError(
+            "Inputs must have the same length, or one of them must be a "
+            f"length-1 literal (got {a.n} and {b.n})."
+        )
+    if not bool(small.validity[0]):
+        raise ValueError(f"cannot broadcast a null literal (side {which!r})")
+    rep = EncodedColumn(
+        codes=np.broadcast_to(small.codes, (big.n, small.width)).copy(),
+        lengths=np.broadcast_to(small.lengths, (big.n,)).copy(),
+        validity=np.broadcast_to(small.validity, (big.n,)).copy(),
+    )
+    return (rep, big) if which == "a" else (big, rep)
+
+
+def compute_scores(
+    col_a,
+    col_b,
+    measures,
+    config: Optional[StrsimConfig] = None,
+    metrics=None,
+) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """Score two string columns under every requested measure.
+
+    Returns {measure: (values f64 [N], validity bool [N])}; values at invalid
+    rows are NaN. Accepts lists / numpy arrays of str|None, anything with
+    to_list, or a pair of EncodedColumns. Pass a utils.metrics.RunMetrics to
+    collect occupancy, padding waste and phase timings.
+    """
+    cfg = config or get_config()
+    device = _device(cfg)
+    measures = resolve_measures(measures)
+    tm = timer()
+    t_total = timer()
+
+    if isinstance(col_a, EncodedColumn) and isinstance(col_b, EncodedColumn):
+        a, b = col_a, col_b
+        if a.width != b.width:
+            w = max(a.width, b.width)
+            a = enc._repad(a, enc.PAD_A, w)
+            b = enc._repad(b, enc.PAD_B, w)
+    else:
+        a, b = enc.encode_pair(col_a, col_b)
+    a, b = _broadcast_pair(a, b)
+    n = a.n
+    if metrics is not None:
+        metrics.n_rows += n
+        metrics.encode_wall_s += tm.lap()
+
+    validity = a.validity & b.validity
+    la = np.where(validity, a.lengths, 0).astype(np.int32)
+    lb = np.where(validity, b.lengths, 0).astype(np.int32)
+    out = {m: np.full(n, np.nan, dtype=np.float64) for m in measures}
+
+    trivial = validity & (la == 0) & (lb == 0)
+    if cfg.equal_fast_path and n:
+        trivial = trivial | (validity & enc.equal_rows(a, b))
+    for m in measures:
+        out[m][trivial] = 1.0
+    work = validity & ~trivial
+    # one side empty: 0.0 for every measure (levenshtein's formula gives it too)
+    one_empty = work & ((la == 0) | (lb == 0))
+    for m in measures:
+        out[m][one_empty] = 0.0
+    idx = np.nonzero(work & ~one_empty)[0]
+    if metrics is not None:
+        metrics.null_rows += int(n - int(validity.sum()))
+        metrics.fast_path_rows += int(trivial.sum())
+        metrics.one_empty_rows += int(one_empty.sum())
+        metrics.device_rows += int(idx.size)
+        metrics.classify_wall_s += tm.lap()
+
+    if idx.size and idx.size <= cfg.host_short_circuit_rows:
+        # small input: the host scores it faster than a device round trip
+        _host_rows(out, measures, a, b, idx, metrics)
+        idx = idx[:0]
+
+    if idx.size:
+        maxlen = np.maximum(la[idx], lb[idx])
+        uniq = np.unique(maxlen)
+        uniq_bucket = np.array([cfg.bucket_for(int(v)) for v in uniq], dtype=np.int64)
+        bucket_of = uniq_bucket[np.searchsorted(uniq, maxlen)]
+        # dispatch every bucket first (uploads and kernels queue on the
+        # stream), then collect and finalize in order
+        pending = []
+        for width in np.unique(bucket_of):
+            sel = idx[bucket_of == width]
+            if width < 0:  # beyond the ladder
+                _host_rows(out, measures, a, b, sel, metrics)
+                continue
+            pending.append(
+                _device_dispatch(measures, a, b, la, lb, sel, int(width), cfg, device)
+            )
+        for item in pending:
+            _device_collect(out, measures, item, metrics)
+
+    if metrics is not None:
+        metrics.total_wall_s += t_total.lap()
+    return {m: (out[m], validity) for m in measures}
+
+
+def _narrow_bucket(cfg: StrsimConfig, a, b, sel, width: int):
+    """Per-bucket tile (dtype, max_char): int8 when the bucket is pure ASCII,
+    else int32. max_char is None when no scan happened (narrowing off, an
+    empty bucket, or columns already encoded int8)."""
+    if not (cfg.narrow_tiles and sel.size):
+        return np.int32, None
+    if a.codes.dtype == np.int8 and b.codes.dtype == np.int8:
+        return np.int8, None
+    mx = max(
+        int(a.codes[sel, :width].max(initial=0)),
+        int(b.codes[sel, :width].max(initial=0)),
+    )
+    return (np.int8 if mx < 128 else np.int32), mx
+
+
+def _pad_codes(codes: np.ndarray, pad: int, width: int) -> np.ndarray:
+    n, w = codes.shape
+    if w == width:
+        return codes
+    padded = np.full((n, width), pad, dtype=codes.dtype)
+    padded[:, : min(w, width)] = codes[:, :width]
+    return padded
+
+
+def _device_dispatch(measures, a, b, la, lb, sel, width, cfg, device):
+    """Stage one bucket: sort, pack, upload once, launch the stat kernels
+    block by block. Returns a pending record for _device_collect."""
+    tm = timer()
+    # length-sorted rows keep a warp's per-thread trip counts close together
+    sel = sel[np.argsort(la[sel].astype(np.int64) + lb[sel], kind="stable")]
+    lens_a = la[sel]
+    lens_b = lb[sel]
+    dtype, _ = _narrow_bucket(cfg, a, b, sel, width)
+    block = min(_block_rows(width, cfg, measures, dtype), _round_batch(sel.size, cfg))
+    n_pad = -(-sel.size // block) * block
+
+    codes_a = a.codes[sel, :width] if a.width >= width else _pad_codes(a.codes[sel], enc.PAD_A, width)
+    codes_b = b.codes[sel, :width] if b.width >= width else _pad_codes(b.codes[sel], enc.PAD_B, width)
+    packed = np.empty((n_pad, 2 * width), dtype=dtype)  # a | b per row
+    packed[: sel.size, :width] = codes_a
+    packed[: sel.size, width:] = codes_b
+    packed[sel.size :, :width] = enc.PAD_A
+    packed[sel.size :, width:] = enc.PAD_B
+    lens = np.zeros((2, n_pad), dtype=np.int32)  # [la; lb], rows contiguous
+    lens[0, : sel.size] = lens_a
+    lens[1, : sel.size] = lens_b
+
+    dev_codes = torch.from_numpy(packed).to(device)
+    dev_lens = torch.from_numpy(lens).to(device)
+    fields = _stat_fields(measures)
+    outs = []
+    for start in range(0, n_pad, block):
+        rows = slice(start, start + block)
+        # column slices of the packed tile: row stride 2 * width, no copy
+        stats = compute_stats(
+            dev_codes[rows, :width], dev_codes[rows, width:],
+            dev_lens[0, rows], dev_lens[1, rows], measures,
+        )
+        outs.append(torch.stack([stats[f] for f in fields]))
+    return {
+        "sel": sel, "width": width, "n_pad": n_pad, "lens_a": lens_a,
+        "lens_b": lens_b, "outs": outs, "dispatch_dt": tm.lap(),
+    }
+
+
+def _device_collect(out, measures, item, metrics=None):
+    tm = timer()
+    sel = item["sel"]
+    host = torch.cat(item["outs"], dim=1).cpu().numpy()  # waits for the kernels
+    stats = {
+        f: host[i, : sel.size].astype(np.int64)
+        for i, f in enumerate(_stat_fields(measures))
+    }
+    device_dt = item["dispatch_dt"] + tm.lap()
+    lens_a = item["lens_a"].astype(np.int64)
+    lens_b = item["lens_b"].astype(np.int64)
+    for m in measures:
+        out[m][sel] = MEASURES[m].finalizer(stats, lens_a, lens_b)
+    if metrics is not None:
+        width = item["width"]
+        bm = metrics.bucket(width)
+        bm.rows += int(sel.size)
+        bm.padded_rows += int(item["n_pad"] - sel.size)
+        bm.char_lanes += int(sel.size) * width
+        bm.useful_char_lanes += int(np.maximum(lens_a, lens_b).sum())
+        bm.device_calls += len(item["outs"])
+        bm.device_wall_s += device_dt
+        metrics.device_wall_s += device_dt
+        metrics.finalize_wall_s += tm.lap()
+
+
+def _host_rows(out, measures, a, b, sel, metrics=None):
+    """Score rows on the host with the oracle (small inputs, rows beyond the
+    ladder)."""
+    for i in sel:
+        sa = enc.decode_row(a.codes[i], int(a.lengths[i]))
+        sb = enc.decode_row(b.codes[i], int(b.lengths[i]))
+        for m in measures:
+            out[m][i] = MEASURES[m].oracle(sa, sb)
+    if metrics is not None:
+        metrics.oracle_rows += int(len(sel))
+        metrics.device_rows -= int(len(sel))

@@ -1,0 +1,96 @@
+"""strsim_tpu_torch's CUDA kernels on the card: each against its plain torch
+version on the same device tensors (exact), and the pipeline on the card
+against the oracle. Marked `cuda`; skipped where torch sees no CUDA device.
+Imports no jax, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import sys
+from functools import partial
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import strsim_tpu_torch as tst
+from strsim_tpu_torch.ops import _build, jaro_cuda, lev_jaro_cuda, levenshtein_cuda, multiset_cuda
+from strsim_tpu_torch.ops.oracle import ORACLES
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import make_tiles  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+FIVE = ("levenshtein", "jaro", "jaro_winkler", "jaccard", "sorensen_dice")
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def packed_tiles(seed: int, n: int, width: int, dtype, device):
+    """Column slices of chip_smoke.make_tiles's packed [n, 2 * width] tile,
+    as the pipeline passes them, and [n] lengths."""
+    packed, lens = make_tiles(np.random.default_rng(seed), n, width, dtype)
+    codes = torch.from_numpy(packed).to(device)
+    lengths = torch.from_numpy(lens).to(device)
+    return codes[:, :width], codes[:, width:], lengths[0], lengths[1]
+
+
+CASES = [
+    pytest.param(levenshtein_cuda.levenshtein_distance, levenshtein_cuda.myers_plain,
+                 (7, 31, 63, 95, 511), (np.int8, np.int32), id="levenshtein_myers"),
+    pytest.param(jaro_cuda.jaro_match_stats, jaro_cuda.jaro_plain,
+                 (7, 31, 63, 95, 511), (np.int8, np.int32), id="jaro_scan"),
+    pytest.param(multiset_cuda.multiset_intersection_rank, multiset_cuda.rank_plain,
+                 (7, 31, 63), (np.int8, np.int32), id="multiset_rank"),
+    pytest.param(multiset_cuda.multiset_intersection_hist, multiset_cuda.hist_plain,
+                 (95, 255, 511), (np.int8,), id="multiset_hist"),
+    pytest.param(partial(lev_jaro_cuda.lev_jaro_stats, with_inter=True),
+                 partial(lev_jaro_cuda.lev_jaro_plain, with_inter=True),
+                 (7, 31, 47, 63, 64), (np.int8, np.int32), id="lev_jaro_fused_inter"),
+    pytest.param(partial(lev_jaro_cuda.lev_jaro_stats, with_inter=False),
+                 partial(lev_jaro_cuda.lev_jaro_plain, with_inter=False),
+                 (7, 31, 47, 63, 64), (np.int8, np.int32), id="lev_jaro_fused"),
+]
+
+
+@pytest.mark.parametrize("kernel,plain,widths,dtypes", CASES)
+def test_kernel_matches_plain(device, kernel, plain, widths, dtypes):
+    for width in widths:
+        for dtype in dtypes:
+            args = packed_tiles(width, 3000, width, dtype, device)
+            got, want = kernel(*args), plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert g.device == device and g.dtype == torch.int32
+                assert torch.equal(g, w), (width, dtype)
+
+
+def test_pipeline_on_the_card_matches_oracle(device):
+    """Short mixed-script rows (the fused kernel K5), a pure-ASCII wide
+    bucket (K1, K2, K4) and a wide non-ASCII bucket (K1, K2 and the plain
+    multiset version on the card), then the short rows once more through
+    single measures (K1, K2, K3)."""
+    rng = np.random.default_rng(0)
+    words = ["phillips", "philips", "смит", "你好世界", "😀a😀", "", "martha", "marhta"]
+    col_a = [words[i] for i in rng.integers(0, len(words), 400)] + [None]
+    col_b = [words[i] for i in rng.integers(0, len(words), 400)] + ["x"]
+    for k in range(40):
+        col_a += ["abcde" * 30 + "x" * k, "жук" * 70 + "a" * k]
+        col_b += ["abdce" * 31, "жкук" * 55]
+    cfg = tst.get_config().replace(device="cuda", host_short_circuit_rows=0)
+    _build.reset_launch_counts()
+    out = tst.compute_many(FIVE, col_a, col_b, config=cfg)
+    for m in FIVE:
+        want = np.array([np.nan if a is None or b is None else ORACLES[m](a, b) for a, b in zip(col_a, col_b)])
+        assert out[m].tobytes() == want.tobytes(), m
+        assert tst.compute(m, col_a[:401], col_b[:401], config=cfg).tobytes() == want[:401].tobytes(), m
+    assert set(_build.launch_counts()) >= {"lev_jaro_fused", "levenshtein_myers", "jaro_scan",
+                                           "multiset_rank", "multiset_hist"}
