@@ -2,22 +2,34 @@
 """Drive strsim_tpu_torch on one CUDA GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels levenshtein_myers,osa_scan   # phases 1-3 for these only
 
 Phases, one line of findings each (any failure exits non-zero):
-  1. device: the card's name and power limit (nvidia-smi);
+  1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
   2. build: every CUDA kernel from csrc/, one nvcc per source in parallel;
   3. kernels: each kernel against its plain torch version on the card, at the
      main path's shapes (65536-row blocks at each ladder width it serves, int8
-     and int32 tiles, seeded inputs incl. astral codepoints); integers must
-     match exactly; both times from CUDA events, and for the fused kernel
-     also the time of the separate kernels it replaces;
+     and int32 tiles, seeded inputs incl. astral codepoints), K5 with its
+     multiset, OSA and LCS outputs on and off, K6 with all three recurrences
+     at every width and with {lev, osa}, {osa, lcs}, {lcs} at w31/w63/w255;
+     integers must match exactly; both times from CUDA events, beside the
+     least time the card could take (`bound_ms`, from this run's lengths:
+     see `bound`); for K5 also the time of the separate kernels it replaces;
+     with --kernels, the run ends here (an A/B of kernels between two trees
+     copies this script into each and runs it there);
   4. end to end: bench.py's make_pairs(1_000_000) and make_wide_pairs(200_000)
-     through compute_many over the five measures and through each measure
-     function, with the launch counts zeroed just before and read just after;
-     scores byte-identical to the pure-Python oracle on a 20K-row subset of
-     each workload, the 1,115 golden cases and the README demo table;
+     through compute_many over the five measures, over all fourteen and over
+     (levenshtein, osa, lcs_seq, indel), and through each of the fourteen
+     measure functions, with the launch counts zeroed just before and read
+     just after (K1-K8 must all launch, K5 also with its OSA and LCS outputs
+     on); scores byte-identical to the pure-Python oracle on all fourteen
+     measures for 20K rows of make_pairs, on the five for 20K rows of
+     make_wide_pairs and on the nine extensions for 4K of them (the OSA and
+     LCS oracles are O(la * lb) a row), the 1,115 golden cases and the README
+     demo table;
   5. a {"kernels": [...]} JSON line, the card line again, and last
-     {"ok": true, "device": {...}}.
+     {"ok": true, "device": {...}}. Each phase-3 case also goes as a JSON line
+     to chiprun_out/chip_smoke_kernels.jsonl.
 
 Imports neither jax nor strsim_tpu. Exits non-zero without a CUDA device.
 """
@@ -35,10 +47,17 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FIVE = ("levenshtein", "jaro", "jaro_winkler", "jaccard", "sorensen_dice")
+EXT = ("jaccard_bigram", "sorensen_dice_bigram", "cosine", "overlap", "hamming",
+       "lcs_seq", "indel", "osa", "soundex")
+ALL = FIVE + EXT
+DP_SET = ("levenshtein", "osa", "lcs_seq", "indel")
 LADDER = (7, 15, 23, 31, 47, 63, 95, 127, 191, 255, 383, 511)
+NARROW = tuple(w for w in LADDER if w <= 63)
 BLOCK = 65536
 ORACLE_ROWS = 20_000
+ORACLE_ROWS_WIDE_EXT = 4_000
 SEED = 20261016
+OUT_DIR = ROOT / "chiprun_out"
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -52,15 +71,109 @@ KERNELS = {
                       "strsim_tpu/ops/multiset_pallas.py:79"),
     "lev_jaro_fused": ("strsim_tpu_torch/csrc/lev_jaro_fused.cu",
                        "strsim_tpu/ops/lev_jaro_pallas.py:129"),
+    "dp_fused": ("strsim_tpu_torch/csrc/dp_fused.cu",
+                 "strsim_tpu/ops/dp_fused_pallas.py:69"),
+    "osa_scan": ("strsim_tpu_torch/csrc/osa_scan.cu",
+                 "strsim_tpu/ops/osa_pallas_scan.py:59"),
+    "bigram": ("strsim_tpu_torch/csrc/bigram.cu",
+               "strsim_tpu/ops/bigram_pallas.py:62"),
 }
+# launch counts the main path must also show: K5 with its OSA / LCS outputs on
+VARIANTS = ("lev_jaro_fused.osa", "lev_jaro_fused.lcs")
+
+# The card's peaks for the bound: device memory at 3.35 TB/s, and 132 SMs of
+# 64 INT32 lanes at the SM clock nvidia-smi reports as its maximum (H100 SXM).
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES = 132 * 64
 
 
-def card_line() -> str:
+def nvidia_smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def max_sm_clock_hz() -> float:
+    return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+
+
+# --- the least time the card could take for a kernel's work ------------------
+
+# Word operations per 32-bit word and step of each recurrence, counted in
+# csrc/bitdp.cuh (the carry, the score's bit reads and loop control left out):
+# Myers 17, Hyyro OSA 21, Allison-Dix LCS 4; and the jaro greedy step's 5 per
+# word of its window (window mask, clear the flagged bits, isolate the lowest
+# bit in two, set its flag).
+MYERS_OPS, OSA_OPS, LCS_OPS, JARO_OPS = 17, 21, 4, 5
+
+
+def _words(n):
+    return -(-n // 32)
+
+
+def _peq(pattern, steps, words):
+    """Operations for the equality words from a per-row table indexed by
+    char: one OR per pattern char to build it, one read per word and step.
+    The kernels build the words by char compares instead (la * lb a row);
+    the bound counts the least the function needs."""
+    return pattern + words * steps
+
+
+def _jaro_window(la, lb):
+    """(a-positions the greedy scan visits, words of b in each window)."""
+    bound = np.maximum(la, lb) // 2 - 1
+    steps = np.clip(np.minimum(la, lb + bound), 0, None)
+    return steps, _words(np.clip(np.minimum(2 * bound + 1, lb), 0, None))
+
+
+def work_ops(name: str, flags: dict, la, lb) -> float:
+    """Integer operations the function of kernel `name` needs for rows of
+    lengths la, lb (numpy int64 arrays), counted for this data as a floor:
+    equality words from a per-row table (`_peq`), each recurrence over its
+    own row's words (ceil(pattern length / 32)) and steps, multisets by
+    histogram (one increment per char of one side, one test-and-decrement
+    per char of the other)."""
+    wa, wb = _words(la), _words(lb)
+    if name in ("levenshtein_myers", "osa_scan", "dp_fused"):  # pattern a, text b
+        on = {"levenshtein_myers": {"with_lev": True}, "osa_scan": {"with_osa": True}}.get(name, flags)
+        per_word = (MYERS_OPS * on.get("with_lev", False) + OSA_OPS * on.get("with_osa", False)
+                    + LCS_OPS * on.get("with_lcs", False))
+        ops = _peq(la, lb, wa) + per_word * wa * lb
+    elif name == "jaro_scan":  # b's equality words, a-position by a-position
+        steps, win = _jaro_window(la, lb)
+        ops = _peq(lb, steps, win) + JARO_OPS * win * steps
+    elif name in ("multiset_rank", "multiset_hist"):
+        ops = 2 * (la + lb)
+    elif name == "lev_jaro_fused":  # pattern b, text a: one lookup feeds every step
+        steps, win = _jaro_window(la, lb)
+        per_word = (MYERS_OPS + OSA_OPS * flags.get("with_osa", False)
+                    + LCS_OPS * flags.get("with_lcs", False))
+        ops = (_peq(lb, la, wb) + per_word * wb * la + JARO_OPS * win * steps
+               + np.minimum(np.minimum(la, lb), 4))  # the capped prefix
+        if flags.get("with_inter", False):
+            ops = ops + 2 * (la + lb)
+    elif name == "bigram":  # bigram histograms, then ham_m over the shared positions
+        ops = 2 * (np.maximum(la - 1, 0) + np.maximum(lb - 1, 0)) + np.minimum(la, lb)
+    else:
+        raise KeyError(name)
+    return float(np.sum(ops))
+
+
+def bound(name: str, flags: dict, lens, elem_bytes: int, n_out: int, clock_hz: float):
+    """(ms, "bytes" or "operations"): the larger of the bytes the function
+    must move (each row's la + lb chars and two lengths read once, its outputs
+    written once) over the memory rate, and its integer operations
+    (`work_ops`) over the INT32 peak."""
+    la, lb = lens[0].astype(np.int64), lens[1].astype(np.int64)
+    t_bytes = float(np.sum((la + lb) * elem_bytes + 8 + 4 * n_out)) / HBM_BYTES_PER_S
+    t_ops = work_ops(name, flags, la, lb) / (INT32_LANES * clock_hz)
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
 def ptxas_summary(log: str) -> str:
@@ -126,10 +239,11 @@ def make_tiles(rng, n: int, width: int, dtype):
     return packed, np.stack([la, lb]).astype(np.int32)
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warm_up: bool = True) -> float:
     import torch
 
-    fn()  # warm up
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -142,26 +256,36 @@ def time_ms(fn, reps: int) -> float:
 
 
 def kernel_cases():
-    """(name, [(kernel, plain), ...], widths, dtypes): every pair is checked,
-    the first is timed. The fused kernel is timed with the multiset step on,
-    as compute_many over the five measures runs it."""
+    """(name, [(flags, kernel, plain), ...], widths, dtypes): every pair is
+    checked and timed at every width and dtype; `flags` are the keyword
+    arguments that select the kernel's outputs."""
     from functools import partial
 
-    from strsim_tpu_torch.ops import jaro_cuda, lev_jaro_cuda, levenshtein_cuda, multiset_cuda
+    from strsim_tpu_torch.ops import (bigram_cuda, dp_fused_cuda, jaro_cuda, lev_jaro_cuda,
+                                      levenshtein_cuda, multiset_cuda, osa_cuda)
+
+    def variants(kernel, plain, *flag_sets):
+        return [(flags, partial(kernel, **flags), partial(plain, **flags)) for flags in flag_sets]
 
     both = (np.int8, np.int32)
-    narrow = tuple(w for w in LADDER if w <= 63)
-    fused = [(partial(lev_jaro_cuda.lev_jaro_stats, with_inter=k),
-              partial(lev_jaro_cuda.lev_jaro_plain, with_inter=k)) for k in (True, False)]
+    k5 = variants(lev_jaro_cuda.lev_jaro_stats, lev_jaro_cuda.lev_jaro_plain,
+                  *({"with_inter": i, "with_osa": o, "with_lcs": o}
+                    for i, o in ((True, False), (False, False), (True, True), (False, True))))
+    k6 = partial(variants, dp_fused_cuda.dp_fused_stats, dp_fused_cuda.dp_fused_plain)
     return [
-        ("levenshtein_myers", [(levenshtein_cuda.levenshtein_distance,
+        ("levenshtein_myers", [({}, levenshtein_cuda.levenshtein_distance,
                                 levenshtein_cuda.myers_plain)], LADDER, both),
-        ("jaro_scan", [(jaro_cuda.jaro_match_stats, jaro_cuda.jaro_plain)], LADDER, both),
-        ("multiset_rank", [(multiset_cuda.multiset_intersection_rank,
-                            multiset_cuda.rank_plain)], narrow, both),
-        ("multiset_hist", [(multiset_cuda.multiset_intersection_hist, multiset_cuda.hist_plain)],
+        ("jaro_scan", [({}, jaro_cuda.jaro_match_stats, jaro_cuda.jaro_plain)], LADDER, both),
+        ("multiset_rank", [({}, multiset_cuda.multiset_intersection_rank,
+                            multiset_cuda.rank_plain)], NARROW, both),
+        ("multiset_hist", [({}, multiset_cuda.multiset_intersection_hist, multiset_cuda.hist_plain)],
          tuple(w for w in LADDER if w > 63), (np.int8,)),
-        ("lev_jaro_fused", fused, narrow, both),
+        ("lev_jaro_fused", k5, NARROW, both),
+        ("dp_fused", k6({"with_lev": True, "with_osa": True, "with_lcs": True}), LADDER, both),
+        ("dp_fused", k6({"with_lev": True, "with_osa": True}, {"with_osa": True, "with_lcs": True},
+                        {"with_lcs": True}), (31, 63, 255), both),
+        ("osa_scan", [({}, osa_cuda.osa_distance, osa_cuda.osa_plain)], LADDER, both),
+        ("bigram", [({}, bigram_cuda.bigram_stats, bigram_cuda.bigram_plain)], NARROW, both),
     ]
 
 
@@ -176,51 +300,68 @@ def separate_kernels(a, b, la, lb):
             multiset_cuda.multiset_intersection_rank(a, b, la, lb))
 
 
-def check_kernels(device) -> dict:
-    """Every kernel against its plain version on the same card tensors."""
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_kernels(device, clock_hz: float, only=None) -> dict:
+    """Every kernel (or those named in `only`) against its plain version on
+    the same card tensors. Returns {name: {max_abs_err, ms, plain_ms,
+    bound_ms, bound_by}}, the times summed over the name's cases."""
     import torch
 
     rng = np.random.default_rng(SEED)
     summary = {}
-    for name, pairs, widths, dtypes in kernel_cases():
-        err, ms, plain_ms = 0, 0.0, 0.0
-        for width in widths:
-            for dtype in dtypes:
-                packed, lens = make_tiles(rng, BLOCK, width, dtype)
-                codes = torch.from_numpy(packed).to(device)
-                lengths = torch.from_numpy(lens).to(device)
-                args = (codes[:, :width], codes[:, width:], lengths[0], lengths[1])
-                for kernel, plain in pairs:
-                    got, want = kernel(*args), plain(*args)
-                    got = got if isinstance(got, tuple) else (got,)
-                    want = want if isinstance(want, tuple) else (want,)
-                    torch.cuda.synchronize()
-                    if len(got) != len(want):
-                        raise AssertionError(f"{name} w{width}: {len(got)} outputs vs {len(want)}")
-                    for g, w in zip(got, want):
-                        if g.shape != w.shape or g.dtype != w.dtype:
-                            raise AssertionError(f"{name} w{width}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
-                        e = int((g.long() - w.long()).abs().max())
-                        if e:
-                            bad = int(torch.nonzero(g != w)[0, 0])
-                            raise AssertionError(
-                                f"{name} w{width} {np.dtype(dtype).name}: kernel != plain "
-                                f"(max abs err {e}; row {bad}: la={int(lens[0, bad])} "
-                                f"lb={int(lens[1, bad])} got {int(g[bad])} want {int(w[bad])})")
-                        err = max(err, e)
-                kernel, plain = pairs[0]
-                k_ms = time_ms(lambda: kernel(*args), 5)
-                p_ms = time_ms(lambda: plain(*args), 1)
-                ms += k_ms
-                plain_ms += p_ms
-                extra = ""
-                if name == "lev_jaro_fused":
-                    s_ms = time_ms(lambda: separate_kernels(*args), 5)
-                    extra = f", separate K1+K2+K3+prefix {s_ms:.4f} ms"
-                print(f"  {name:18s} w{width:<3d} {np.dtype(dtype).name:5s} "
-                      f"rows {BLOCK}: exact, kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms{extra}",
-                      flush=True)
-        summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as log:
+        for name, pairs, widths, dtypes in kernel_cases():
+            if only is not None and name not in only:
+                continue
+            entry = summary.setdefault(name, {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
+                                              "bound_ms": 0.0, "bound_by": {}})
+            for width in widths:
+                for dtype in dtypes:
+                    packed, lens = make_tiles(rng, BLOCK, width, dtype)
+                    codes = torch.from_numpy(packed).to(device)
+                    lengths = torch.from_numpy(lens).to(device)
+                    args = (codes[:, :width], codes[:, width:], lengths[0], lengths[1])
+                    for flags, kernel, plain in pairs:
+                        label = f"{name} {'+'.join(k[5:] for k, on in flags.items() if on) or '-'} w{width} {np.dtype(dtype).name}"
+                        got = _as_tuple(kernel(*args))
+                        want = _as_tuple(plain(*args))  # also the plain version's warm-up
+                        p_ms = time_ms(lambda: plain(*args), 1, warm_up=False)
+                        if len(got) != len(want):
+                            raise AssertionError(f"{label}: {len(got)} outputs vs {len(want)}")
+                        for g, w in zip(got, want):
+                            if g.shape != w.shape or g.dtype != w.dtype:
+                                raise AssertionError(f"{label}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+                            e = int((g.long() - w.long()).abs().max())
+                            if e:
+                                bad = int(torch.nonzero(g != w)[0, 0])
+                                raise AssertionError(
+                                    f"{label}: kernel != plain (max abs err {e}; row {bad}: "
+                                    f"la={int(lens[0, bad])} lb={int(lens[1, bad])} "
+                                    f"got {int(g[bad])} want {int(w[bad])})")
+                        k_ms = time_ms(lambda: kernel(*args), 5)
+                        b_ms, b_by = bound(name, flags, lens, np.dtype(dtype).itemsize, len(got),
+                                           clock_hz)
+                        record = {"name": name, "flags": flags, "width": width,
+                                  "dtype": np.dtype(dtype).name, "rows": BLOCK, "ms": k_ms,
+                                  "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+                        extra = ""
+                        if name == "lev_jaro_fused" and flags == {"with_inter": True, "with_osa": False,
+                                                                  "with_lcs": False}:
+                            record["separate_ms"] = time_ms(lambda: separate_kernels(*args), 5)
+                            extra = f", separate K1+K2+K3+prefix {record['separate_ms']:.4f} ms"
+                        log.write(json.dumps(record) + "\n")
+                        entry["ms"] += k_ms
+                        entry["plain_ms"] += p_ms
+                        entry["bound_ms"] += b_ms
+                        entry["bound_by"][b_by] = entry["bound_by"].get(b_by, 0) + 1
+                        print(f"  {label:42s} rows {BLOCK}: exact, kernel {k_ms:.4f} ms, "
+                              f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}){extra}", flush=True)
+    for entry in summary.values():  # what bounds most of the name's cases
+        entry["bound_by"] = max(entry["bound_by"], key=entry["bound_by"].get)
     return summary
 
 
@@ -230,57 +371,77 @@ def _oracle_scores(task):
     """Worker: oracle scores [rows, measures] for (a, b) pairs, NaN at nulls."""
     from strsim_tpu_torch.ops.oracle import ORACLES
 
-    pairs = task
-    out = np.full((len(pairs), len(FIVE)), np.nan)
+    pairs, measures = task
+    out = np.full((len(pairs), len(measures)), np.nan)
     for r, (a, b) in enumerate(pairs):
         if a is not None and b is not None:
-            out[r] = [ORACLES[m](a, b) for m in FIVE]
+            out[r] = [ORACLES[m](a, b) for m in measures]
     return out
 
 
-def oracle_check(label, col_a, col_b, got: dict, pool) -> None:
-    rng = np.random.default_rng(SEED + 1)
-    rows = np.sort(rng.choice(len(col_a), size=min(ORACLE_ROWS, len(col_a)), replace=False))
+def oracle_check(label, col_a, col_b, got: dict, measures, n_rows: int, pool) -> None:
+    rng = np.random.default_rng(SEED + n_rows)
+    rows = np.sort(rng.choice(len(col_a), size=min(n_rows, len(col_a)), replace=False))
     pairs = [(col_a[i], col_b[i]) for i in rows]
-    chunks = [pairs[k : k + 250] for k in range(0, len(pairs), 250)]
+    chunks = [(pairs[k : k + 100], measures) for k in range(0, len(pairs), 100)]
     want = np.concatenate(pool.map(_oracle_scores, chunks))
-    for k, m in enumerate(FIVE):
+    for k, m in enumerate(measures):
         if got[m][rows].tobytes() != want[:, k].tobytes():
             bad = int(np.nonzero(got[m][rows] != want[:, k])[0][0])
             raise AssertionError(f"{label} {m}: row {rows[bad]} got {got[m][rows][bad]!r} "
                                  f"want {want[bad, k]!r}")
-    print(f"  {label}: {rows.size} rows byte-identical to the oracle on all five measures", flush=True)
+    print(f"  {label}: {rows.size} rows byte-identical to the oracle on {len(measures)} measures",
+          flush=True)
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _phases(label, measures_label, rm) -> None:
+    print(f"  {label}: {measures_label} wall s encode {rm.encode_wall_s:.3f}, classify "
+          f"{rm.classify_wall_s:.3f}, buckets (sort, pack, upload, kernels, download) "
+          f"{rm.device_wall_s:.3f}, finalize {rm.finalize_wall_s:.3f}, total "
+          f"{rm.total_wall_s:.3f}; rows null {rm.null_rows}, host fast path "
+          f"{rm.fast_path_rows + rm.one_empty_rows}, device {rm.device_rows}, oracle "
+          f"{rm.oracle_rows}; buckets {sorted(rm.buckets)}", flush=True)
 
 
 def run_workloads(st, workloads) -> dict:
-    """The main path: compute_many over the five measures, then each measure
-    function, on every workload, and one more five-measure pass that records
-    where the wall time goes (RunMetrics). Returns {label: compute_many
-    scores}."""
+    """The main path, on every workload: compute_many over the five measures
+    and a five-measure pass that records where the wall time goes
+    (RunMetrics), each of the five measure functions, then the same over all
+    fourteen, compute_many over (levenshtein, osa, lcs_seq, indel) and each
+    of the nine extension functions. Every result must equal compute_many
+    over all fourteen. Returns {label: compute_many(all fourteen) scores}."""
     from strsim_tpu_torch.models.pipeline import compute_scores
     from strsim_tpu_torch.utils.metrics import RunMetrics
 
     scores = {}
     for label, col_a, col_b in workloads:
         n = len(col_a)
-        t0 = time.perf_counter()
-        many = st.compute_many(FIVE, col_a, col_b)
-        dt = time.perf_counter() - t0
+        five, dt = _timed(lambda: st.compute_many(FIVE, col_a, col_b))
         print(f"  {label}: compute_many(five) {n} pairs in {dt:.3f} s = {n / dt:.0f} pairs/s", flush=True)
         rm = RunMetrics()
         compute_scores(col_a, col_b, FIVE, metrics=rm)
-        print(f"  {label}: wall s encode {rm.encode_wall_s:.3f}, classify {rm.classify_wall_s:.3f}, "
-              f"buckets (sort, pack, upload, kernels, download) {rm.device_wall_s:.3f}, finalize "
-              f"{rm.finalize_wall_s:.3f}, total {rm.total_wall_s:.3f}; rows null {rm.null_rows}, "
-              f"host fast path {rm.fast_path_rows + rm.one_empty_rows}, device {rm.device_rows}, "
-              f"oracle {rm.oracle_rows}; buckets {sorted(rm.buckets)}", flush=True)
-        for m in FIVE:
-            t0 = time.perf_counter()
-            one = getattr(st, m)(col_a, col_b)
-            dt = time.perf_counter() - t0
-            if one.tobytes() != many[m].tobytes():
-                raise AssertionError(f"{label}: {m}() differs from compute_many")
+        _phases(label, "five", rm)
+        many, dt = _timed(lambda: st.compute_many(ALL, col_a, col_b))
+        print(f"  {label}: compute_many(all 14) {n} pairs in {dt:.3f} s = {n / dt:.0f} pairs/s", flush=True)
+        rm = RunMetrics()
+        compute_scores(col_a, col_b, ALL, metrics=rm)
+        _phases(label, "all 14", rm)
+        dp, dt = _timed(lambda: st.compute_many(DP_SET, col_a, col_b))
+        print(f"  {label}: compute_many({', '.join(DP_SET)}) in {dt:.3f} s = {n / dt:.0f} pairs/s",
+              flush=True)
+        for m in ALL:
+            one, dt = _timed(lambda: getattr(st, m)(col_a, col_b))
             print(f"  {label}: {m} {n / dt:.0f} pairs/s ({dt:.3f} s)", flush=True)
+            for what, res in ((f"{m}()", one), ("compute_many(five)", five.get(m)),
+                              (f"compute_many({DP_SET})", dp.get(m))):
+                if res is not None and res.tobytes() != many[m].tobytes():
+                    raise AssertionError(f"{label}: {what} differs from compute_many(all 14) on {m}")
         scores[label] = many
     return scores
 
@@ -320,9 +481,15 @@ def check_golden_and_demo(st) -> None:
           "and the default config; demo table exact", flush=True)
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    only = None
+    if argv[:1] == ["--kernels"] and len(argv) == 2:
+        only = argv[1].split(",")
+    elif argv:
+        print(__doc__, file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -331,9 +498,11 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = card_line()
+    clock_hz = max_sm_clock_hz()
     device = torch.device("cuda", 0)
-    print(f"phase 1 device: {card} | torch {torch.__version__} CUDA {torch.version.cuda} "
-          f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    print(f"phase 1 device: {card}, max SM clock {clock_hz / 1e6:.0f} MHz | torch "
+          f"{torch.__version__} CUDA {torch.version.cuda} | {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}", flush=True)
 
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -343,7 +512,9 @@ def main() -> int:
         print(f"  ptxas {name}: {ptxas_summary(log)}")
 
     print("phase 3 kernels vs plain torch on the card:", flush=True)
-    summary = check_kernels(device)
+    summary = check_kernels(device, clock_hz, only)
+    if only is not None:
+        return 0 if set(only) <= set(summary) else 2
 
     print("phase 4 end to end:", flush=True)
     sys.path.insert(0, str(ROOT))
@@ -357,29 +528,33 @@ def main() -> int:
     scores = run_workloads(st, workloads)
     launches = _build.launch_counts()
     print(f"  launches on the main path: {launches}", flush=True)
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    missing = [k for k in (*KERNELS, *VARIANTS) if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     for label, col_a, col_b in workloads:
         valid = np.array([x is not None and y is not None for x, y in zip(col_a, col_b)])
-        for m in FIVE:
+        for m in ALL:
             v = scores[label][m]
             if v.shape != (len(col_a),) or v.dtype != np.float64:
                 raise AssertionError(f"{label} {m}: {v.dtype} {v.shape}")
             if not (np.isnan(v[~valid]).all() and ((v[valid] >= 0) & (v[valid] <= 1)).all()):
                 raise AssertionError(f"{label} {m}: NaN off the null rows or a score outside [0, 1]")
     ctx = multiprocessing.get_context("spawn")
+    (narrow_label, *narrow), (wide_label, *wide) = workloads
     with ctx.Pool(8) as pool:
-        for label, col_a, col_b in workloads:
-            oracle_check(label, col_a, col_b, scores[label], pool)
+        oracle_check(narrow_label, *narrow, scores[narrow_label], ALL, ORACLE_ROWS, pool)
+        oracle_check(wide_label, *wide, scores[wide_label], FIVE, ORACLE_ROWS, pool)
+        oracle_check(wide_label, *wide, scores[wide_label], EXT, ORACLE_ROWS_WIDE_EXT, pool)
     check_golden_and_demo(st)
 
     print(f"phase 5 done in {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], **summary[name]}
+         "launches": launches[name], **summary[name], "library_ms": None}
         for name, (src, tpu) in KERNELS.items()
     ]
+    kernels[list(KERNELS).index("lev_jaro_fused")].update(
+        {f"launches_{k.split('.')[1]}": launches[k] for k in VARIANTS})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -389,4 +564,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,8 +2,10 @@
 kernels for an NVIDIA Hopper GPU.
 
 The five normalized similarity measures of polars-strsim (Levenshtein, Jaro,
-Jaro-Winkler, Jaccard, Sorensen-Dice) over paired string columns, with f64
-scores bit-for-float identical to the reference and to `strsim_tpu`:
+Jaro-Winkler, Jaccard, Sorensen-Dice) and `strsim_tpu`'s nine extensions
+(bigram Jaccard and Sorensen-Dice, cosine, overlap, Hamming, LCS, indel, OSA,
+Soundex) over paired string columns, with f64 scores bit-for-float identical
+to the reference and to `strsim_tpu`:
 
   strings -> UCS4 codepoint tiles (utils/encode.py)
           -> length buckets, padded [B, L] int8/int32 batches (models/pipeline.py)
@@ -20,12 +22,21 @@ from strsim_tpu_torch.api import (
     compute,
     compute_many,
     compute_with_validity,
+    cosine,
+    hamming,
+    indel,
     jaccard,
+    jaccard_bigram,
     jaro,
     jaro_winkler,
+    lcs_seq,
     levenshtein,
     lit,
+    osa,
+    overlap,
     sorensen_dice,
+    sorensen_dice_bigram,
+    soundex,
 )
 from strsim_tpu_torch.config import StrsimConfig, get_config, set_config
 from strsim_tpu_torch.models.measures import MEASURES
@@ -36,6 +47,15 @@ __all__ = [
     "jaro_winkler",
     "jaccard",
     "sorensen_dice",
+    "jaccard_bigram",
+    "sorensen_dice_bigram",
+    "cosine",
+    "overlap",
+    "hamming",
+    "lcs_seq",
+    "indel",
+    "osa",
+    "soundex",
     "compute",
     "compute_many",
     "compute_with_validity",

@@ -1,4 +1,5 @@
-"""Public API (array mode): the five measure functions and batch entry points.
+"""Public API (array mode): the fourteen measure functions and batch entry
+points.
 
 Mirrors `strsim_tpu/api.py` for array-like columns (lists, numpy arrays,
 anything with to_list): each function returns a float64 numpy array with NaN
@@ -78,3 +79,14 @@ jaro = _measure_fn("jaro")
 jaro_winkler = _measure_fn("jaro_winkler")
 jaccard = _measure_fn("jaccard")
 sorensen_dice = _measure_fn("sorensen_dice")
+
+# extension measures, not in the reference (strsim_tpu/api.py)
+jaccard_bigram = _measure_fn("jaccard_bigram")
+sorensen_dice_bigram = _measure_fn("sorensen_dice_bigram")
+cosine = _measure_fn("cosine")
+overlap = _measure_fn("overlap")
+hamming = _measure_fn("hamming")
+lcs_seq = _measure_fn("lcs_seq")
+indel = _measure_fn("indel")
+osa = _measure_fn("osa")
+soundex = _measure_fn("soundex")

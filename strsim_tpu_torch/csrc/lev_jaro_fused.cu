@@ -1,5 +1,5 @@
 // Shared-equality fused stats: lev_d, jaro_m, jaro_t, prefix and optionally
-// inter in one pass, one thread per row pair, widths <= 64.
+// inter, osa_d and lcs_len in one pass, one thread per row pair, widths <= 64.
 //
 // Replaces strsim_tpu/ops/lev_jaro_pallas.py: _kernel (with _transpose_bits
 // and _transpose_eq) behind fused_stats_pallas and lev_jaro_stats_pallas,
@@ -8,7 +8,8 @@
 // for row, as the plain torch version in strsim_tpu_torch/ops/lev_jaro_cuda.py,
 // which runs the separate plain versions: lev_d as levenshtein_myers.cu, m/t
 // as jaro_scan.cu (len-1/len-1 patch included), inter as multiset.cu's
-// occurrence-rank form, prefix as the 4-capped common prefix of the tiles.
+// occurrence-rank form, prefix as the 4-capped common prefix of the tiles,
+// osa_d as osa_scan.cu and lcs_len as dp_fused.cu's LCS.
 //
 // What bounds it on this card: building the equality words, la * lb char
 // compares a row from L1-resident rows, as in the Myers kernel alone; the
@@ -29,21 +30,25 @@
 //     stored words nor the transpose. Rows with an empty side are not
 //     distances (the finalizer ignores them); for those the kernel returns
 //     what the a-pattern recurrence returns: la == 0 gives max(lb - 1, 0),
-//     lb == 0 gives la.
+//     lb == 0 gives la;
+//   * the OSA step (Hyyro's D0 form) and the LCS step (Allison-Dix) run the
+//     same way, b as the pattern, on the same EqB_i word (steps from
+//     bitdp.cuh). OSA distance and LCS length are symmetric too; on rows
+//     with an empty side osa_d follows the a-pattern recurrence as lev_d
+//     does, and lcs_len is 0 in either orientation.
 // t is the two-pointer walk over the matched-a and flagged-b bit sets of
 // jaro_scan.cu, exact for every codepoint on int8 and int32 tiles.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bitdp.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxWords = 2;
 
-// bits [0, x) set, saturating at 0 and 32
-__device__ __forceinline__ uint32_t low_bits(int x) {
-  return x <= 0 ? 0u : (x >= 32 ? 0xFFFFFFFFu : (1u << x) - 1u);
-}
+using strsim::low_bits;
 
 template <int W>
 __device__ __forceinline__ uint32_t word_at(const uint32_t (&v)[W], int k) {
@@ -54,7 +59,7 @@ __device__ __forceinline__ uint32_t word_at(const uint32_t (&v)[W], int k) {
   return out;
 }
 
-template <typename T, int W, bool kInter>
+template <typename T, int W, bool kInter, bool kOsa, bool kLcs>
 __global__ void lev_jaro_kernel(const T* __restrict__ a,
                                 const T* __restrict__ b, long long stride_a,
                                 long long stride_b,
@@ -64,7 +69,9 @@ __global__ void lev_jaro_kernel(const T* __restrict__ a,
                                 int* __restrict__ m_out,
                                 int* __restrict__ t_out,
                                 int* __restrict__ prefix_out,
-                                int* __restrict__ inter_out, int n, int L) {
+                                int* __restrict__ inter_out,
+                                int* __restrict__ osa_out,
+                                int* __restrict__ lcs_out, int n, int L) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const T* ar = a + (long long)r * stride_a;
@@ -83,15 +90,15 @@ __global__ void lev_jaro_kernel(const T* __restrict__ a,
   const int hword = m1 >> 5;
   const unsigned hbit = (unsigned)(m1 & 31);
 
-  uint32_t pv[W], mv[W], flag[W], mat[W];
+  uint32_t pv[W], mv[W], flag[W], mat[W], opv[W], omv[W], d0p[W], pmo[W], v[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    pv[w] = 0xFFFFFFFFu;
-    mv[w] = 0u;
+    pv[w] = opv[w] = v[w] = 0xFFFFFFFFu;
+    mv[w] = omv[w] = d0p[w] = pmo[w] = 0u;
     flag[w] = 0u;
     mat[w] = 0u;
   }
-  int score = nb, m = 0, inter = 0;
+  int score = nb, osa = nb, m = 0, inter = 0;
 
   for (int i = 0; i < na; ++i) {
     const T c = ar[i];
@@ -133,31 +140,10 @@ __global__ void lev_jaro_kernel(const T* __restrict__ a,
       inter += occ < cnt ? 1 : 0;
     }
 
-    // Myers step for text char a_i (levenshtein_myers.cu, roles swapped)
-    uint32_t carry = 0u, ph_in = 1u, mh_in = 0u;
-    int ph_bit = 0, mh_bit = 0;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const uint32_t pvw = pv[w], mvw = mv[w];
-      const uint32_t x = eq[w] & pvw;
-      const uint64_t s = (uint64_t)x + (uint64_t)pvw + (uint64_t)carry;
-      carry = (uint32_t)(s >> 32);
-      const uint32_t xh = ((uint32_t)s ^ pvw) | eq[w];
-      const uint32_t xv = eq[w] | mvw;
-      const uint32_t ph = mvw | ~(xh | pvw);
-      const uint32_t mh = pvw & xh;
-      if (w == hword) {
-        ph_bit = (int)((ph >> hbit) & 1u);
-        mh_bit = (int)((mh >> hbit) & 1u);
-      }
-      const uint32_t ph_s = (ph << 1) | ph_in;
-      const uint32_t mh_s = (mh << 1) | mh_in;
-      ph_in = ph >> 31;
-      mh_in = mh >> 31;
-      pv[w] = mh_s | ~(xv | ph_s);
-      mv[w] = ph_s & xv;
-    }
-    score += ph_bit - mh_bit;
+    // text char a_i against pattern b (roles swapped, see above)
+    score += strsim::myers_step<W>(eq, pv, mv, hword, hbit);
+    if (kOsa) osa += strsim::osa_step<W>(eq, opv, omv, d0p, pmo, hword, hbit);
+    if (kLcs) strsim::lcs_step<W>(eq, v);
   }
 
   // r-th matched a-position against r-th flagged b-position (jaro_scan.cu)
@@ -190,45 +176,59 @@ __global__ void lev_jaro_kernel(const T* __restrict__ a,
   t_out[r] = t;
   prefix_out[r] = prefix;
   if (kInter) inter_out[r] = inter;
+  if (kOsa) osa_out[r] = la == 0 ? max(lb - 1, 0) : (lb == 0 ? la : osa);
+  if (kLcs) lcs_out[r] = strsim::lcs_length<W>(v, nb);
 }
 
 template <typename T, int W>
 cudaError_t launch_w(const void* a, const void* b, long long sa, long long sb,
                      const int* la, const int* lb, int* lev, int* m, int* t,
-                     int* prefix, int* inter, int n, int L,
+                     int* prefix, int* inter, int* osa, int* lcs, int n, int L,
                      cudaStream_t stream) {
   const dim3 grid((n + kThreads - 1) / kThreads), block(kThreads);
   const T* ta = static_cast<const T*>(a);
   const T* tb = static_cast<const T*>(b);
-  if (inter != nullptr)
-    lev_jaro_kernel<T, W, true><<<grid, block, 0, stream>>>(
-        ta, tb, sa, sb, la, lb, lev, m, t, prefix, inter, n, L);
-  else
-    lev_jaro_kernel<T, W, false><<<grid, block, 0, stream>>>(
-        ta, tb, sa, sb, la, lb, lev, m, t, prefix, inter, n, L);
+  const int flags = (inter != nullptr) | (osa != nullptr) << 1 | (lcs != nullptr) << 2;
+  switch (flags) {
+#define STRSIM_CASE(F, I_, O_, C_)                                           \
+  case F:                                                                    \
+    lev_jaro_kernel<T, W, I_, O_, C_><<<grid, block, 0, stream>>>(          \
+        ta, tb, sa, sb, la, lb, lev, m, t, prefix, inter, osa, lcs, n, L);   \
+    break;
+    STRSIM_CASE(0, false, false, false)
+    STRSIM_CASE(1, true, false, false)
+    STRSIM_CASE(2, false, true, false)
+    STRSIM_CASE(3, true, true, false)
+    STRSIM_CASE(4, false, false, true)
+    STRSIM_CASE(5, true, false, true)
+    STRSIM_CASE(6, false, true, true)
+    STRSIM_CASE(7, true, true, true)
+#undef STRSIM_CASE
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(int words, const void* a, const void* b, long long sa,
                    long long sb, const int* la, const int* lb, int* lev,
-                   int* m, int* t, int* prefix, int* inter, int n, int L,
-                   cudaStream_t stream) {
+                   int* m, int* t, int* prefix, int* inter, int* osa, int* lcs,
+                   int n, int L, cudaStream_t stream) {
   if (words == 1)
-    return launch_w<T, 1>(a, b, sa, sb, la, lb, lev, m, t, prefix, inter, n, L, stream);
-  return launch_w<T, 2>(a, b, sa, sb, la, lb, lev, m, t, prefix, inter, n, L, stream);
+    return launch_w<T, 1>(a, b, sa, sb, la, lb, lev, m, t, prefix, inter, osa, lcs, n, L, stream);
+  return launch_w<T, 2>(a, b, sa, sb, la, lb, lev, m, t, prefix, inter, osa, lcs, n, L, stream);
 }
 
 }  // namespace
 
 // Row r of a starts at a + r * stride_a elements (likewise b). elem_bytes:
-// 1 (int8) or 4 (int32). inter_out may be null: the multiset step is then
-// compiled out. Returns the launch's cudaError_t (0 on success).
+// 1 (int8) or 4 (int32). inter_out, osa_out and lcs_out may be null: that
+// step is then compiled out. Returns the launch's cudaError_t (0 on success).
 extern "C" int strsim_lev_jaro_fused(const void* a, const void* b,
                                      long long stride_a, long long stride_b,
                                      const void* len_a, const void* len_b,
                                      void* lev_out, void* m_out, void* t_out,
-                                     void* prefix_out, void* inter_out, int n,
+                                     void* prefix_out, void* inter_out,
+                                     void* osa_out, void* lcs_out, int n,
                                      int L, int elem_bytes, void* stream) {
   const int words = (L + 31) / 32;
   if (n <= 0 || L <= 0 || words > kMaxWords) return (int)cudaErrorInvalidValue;
@@ -239,12 +239,14 @@ extern "C" int strsim_lev_jaro_fused(const void* a, const void* b,
   int* t = static_cast<int*>(t_out);
   int* prefix = static_cast<int*>(prefix_out);
   int* inter = static_cast<int*>(inter_out);
+  int* osa = static_cast<int*>(osa_out);
+  int* lcs = static_cast<int*>(lcs_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 1)
     return (int)launch<int8_t>(words, a, b, stride_a, stride_b, la, lb, lev, m,
-                               t, prefix, inter, n, L, s);
+                               t, prefix, inter, osa, lcs, n, L, s);
   if (elem_bytes == 4)
     return (int)launch<int32_t>(words, a, b, stride_a, stride_b, la, lb, lev,
-                                m, t, prefix, inter, n, L, s);
+                                m, t, prefix, inter, osa, lcs, n, L, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -28,7 +28,13 @@ MEASURES: Dict[str, Measure] = {
         finalizer=_finalize.FINALIZERS[name],
         oracle=_oracle.ORACLES[name],
     )
-    for name in ("levenshtein", "jaro", "jaro_winkler", "jaccard", "sorensen_dice")
+    for name in (
+        # the reference's five
+        "levenshtein", "jaro", "jaro_winkler", "jaccard", "sorensen_dice",
+        # extensions, not in the reference (strsim_tpu/models/measures.py)
+        "jaccard_bigram", "sorensen_dice_bigram", "cosine", "overlap", "hamming",
+        "lcs_seq", "indel", "osa", "soundex",
+    )
 }
 
 

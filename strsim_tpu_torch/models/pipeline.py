@@ -24,7 +24,7 @@ import torch
 
 from strsim_tpu_torch.config import StrsimConfig, get_config
 from strsim_tpu_torch.models.measures import MEASURES, resolve_measures
-from strsim_tpu_torch.ops.stats import STAT_FIELDS, compute_stats, multiset_route
+from strsim_tpu_torch.ops.stats import STAT_FIELDS, compute_stats, stat_routes
 from strsim_tpu_torch.utils import encode as enc
 from strsim_tpu_torch.utils.encode import EncodedColumn
 from strsim_tpu_torch.utils.metrics import timer
@@ -42,12 +42,14 @@ def _round_batch(n: int, cfg: StrsimConfig) -> int:
 
 
 def _block_rows(width: int, cfg: StrsimConfig, measures: Tuple[str, ...], dtype) -> int:
-    """Max rows per stat call, a power of two. The plain multiset form (wide
-    int32 and extend buckets) holds a [rows, 16, L] compare tensor, so its
-    blocks are capped at 2^28 elements; the kernels hold O(rows) state."""
+    """Max rows per stat call, a power of two. The plain multiset and bigram
+    forms (wide int32 and extend buckets, bigrams wider than 64) hold a
+    [rows, 16, L] compare tensor and the plain soundex a few [rows, L]
+    tensors, so blocks that run one of them are capped at 2^28 / (16 L)
+    rows; the kernels hold O(rows) state."""
     cap = cfg.max_batch_block
-    need_multiset = any("inter" in STAT_FIELDS[m] for m in measures)
-    if need_multiset and multiset_route(width, _torch_dtype(dtype)) == "plain":
+    routes = stat_routes(measures, width, _torch_dtype(dtype))
+    if any(routes.get(f) == "plain" for f in ("inter", "inter2", "sdx_eq")):
         cap = min(cap, max(cfg.min_batch, (1 << 28) // max(16 * width, 1)))
     b = cfg.min_batch
     while b * 2 <= cap:

@@ -12,8 +12,9 @@ The file name carries a hash of the source and the flags, so an edited kernel
 never loads a stale build. Nothing builds at import time: a wrapper's first
 launch calls `library()`, and `build_all()` starts every nvcc at once.
 
-The wrappers count their launches here (`count_launch`), so a run can show
-that its main path went through each kernel.
+The wrappers launch through `launch`, which counts each launch under the
+kernel's name, so a run can show that its main path went through each
+kernel.
 """
 from __future__ import annotations
 
@@ -76,8 +77,20 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
     ),
     "lev_jaro_fused": (
         "lev_jaro_fused.cu",
-        {"strsim_lev_jaro_fused": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P,
+        {"strsim_lev_jaro_fused": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _P]},
+    ),
+    "dp_fused": (
+        "dp_fused.cu",
+        {"strsim_dp_fused": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    ),
+    "osa_scan": (
+        "osa_scan.cu",
+        {"strsim_osa_distance": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P]},
+    ),
+    "bigram": (
+        "bigram.cu",
+        {"strsim_bigram": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     ),
 }
 
@@ -97,8 +110,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = _CSRC / LIBRARIES[name][0]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, every csrc/*.cuh
+    header (a source may include any of them) and the flags."""
+    h = hashlib.sha256((_CSRC / LIBRARIES[name][0]).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -187,11 +205,27 @@ def check_tiles(a, b, len_a, len_b, max_width: int, dtypes) -> bool:
     return kind == "cuda"
 
 
-def check_launch(kernel: str, rc: int) -> None:
-    """Raise if a launch returned a CUDA error; count it otherwise."""
+def launch(lib_name: str, fn_name: str, counts: Tuple[str, ...], a, b, len_a, len_b,
+           outs, *args) -> None:
+    """Launch C function `fn_name` of library `lib_name` on the current
+    stream as fn(a, b, stride_a, stride_b, len_a, len_b, *outs, n, L, *args,
+    stream), where a None in `outs` passes a null pointer (an output the
+    kernel then leaves out). No rows: nothing to launch. Raises if the
+    launch returned a CUDA error; adds one to each launch count in `counts`
+    otherwise."""
+    n, width = a.shape
+    if n == 0:
+        return
+    fn = getattr(library(lib_name), fn_name)
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), b.data_ptr(), a.stride(0), b.stride(0),
+                len_a.data_ptr(), len_b.data_ptr(),
+                *(None if o is None else o.data_ptr() for o in outs),
+                n, width, *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError_t {rc}")
-    _launches[kernel] = _launches.get(kernel, 0) + 1
+        raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: cudaError_t {rc}")
+    for key in counts:
+        _launches[key] = _launches.get(key, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:

@@ -35,19 +35,10 @@ def jaro_match_stats(a, b, len_a, len_b) -> Tuple[torch.Tensor, torch.Tensor]:
     slices of a packed tile), len_a, len_b: [B] int32, L <= 512."""
     if not _build.check_tiles(a, b, len_a, len_b, MAX_WIDTH, _DTYPES):
         return jaro_plain(a, b, len_a, len_b)
-    n, width = a.shape
-    m = torch.empty(n, dtype=torch.int32, device=a.device)
-    t = torch.empty(n, dtype=torch.int32, device=a.device)
-    if n == 0:
-        return m, t
-    lib = _build.library("jaro_scan")
-    with torch.cuda.device(a.device):
-        rc = lib.strsim_jaro_scan(
-            a.data_ptr(), b.data_ptr(), a.stride(0), b.stride(0),
-            len_a.data_ptr(), len_b.data_ptr(), m.data_ptr(), t.data_ptr(),
-            n, width, a.element_size(), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_launch("jaro_scan", rc)
+    m = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
+    t = torch.empty_like(m)
+    _build.launch("jaro_scan", "strsim_jaro_scan", ("jaro_scan",),
+                  a, b, len_a, len_b, (m, t), a.element_size())
     return m, t
 
 

@@ -43,18 +43,9 @@ def multiset_intersection_hist(a, b, len_a, len_b) -> torch.Tensor:
 
 
 def _launch(kernel: str, a, b, len_a, len_b, *elem_bytes) -> torch.Tensor:
-    n, width = a.shape
-    out = torch.empty(n, dtype=torch.int32, device=a.device)
-    if n == 0:
-        return out
-    fn = getattr(_build.library("multiset"), f"strsim_{kernel}")
-    with torch.cuda.device(a.device):
-        rc = fn(
-            a.data_ptr(), b.data_ptr(), a.stride(0), b.stride(0),
-            len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
-            n, width, *elem_bytes, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_launch(kernel, rc)
+    out = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
+    _build.launch("multiset", f"strsim_{kernel}", (kernel,), a, b, len_a, len_b,
+                  (out,), *elem_bytes)
     return out
 
 

@@ -1,30 +1,43 @@
-"""Integer sufficient statistics for the five measures, and the router that
-picks a kernel for each (the counterpart of `strsim_tpu/ops/stats.py` with
-`strsim_tpu/models/pipeline.py:_impls_for`).
+"""Integer sufficient statistics for the fourteen measures, and the router
+that picks a kernel for each (the counterpart of `strsim_tpu/ops/stats.py`
+with `strsim_tpu/models/pipeline.py:_impls_for` as it picks on a TPU).
 
 Statistics per measure:
   levenshtein   -> edit distance lev_d                 (strsim.rs:146-159)
   jaro          -> match count jaro_m, raw transpositions jaro_t (:200-237)
   jaro_winkler  -> jaro_m, jaro_t, prefix (shared prefix <= 4)  (:261-266)
   jaccard/dice  -> multiset intersection inter          (:297-306)
+and for the nine extensions (not in the reference):
+  jaccard_bigram, sorensen_dice_bigram -> bigram intersection inter2, and
+                  the row-equality eq (length-1 equal pairs have no bigrams)
+  cosine, overlap -> inter
+  hamming       -> positional matches ham_m
+  lcs_seq, indel -> LCS length lcs_len
+  osa           -> OSA distance osa_d
+  soundex       -> soundex code equality sdx_eq
 
 Tiles are [B, L] codepoints padded with PAD_A = -1 / PAD_B = -2, which never
-equal each other or a real char, so equality needs no masks. The router keys
-on bucket width and tile dtype; each wrapper keys on the tile's device (CUDA
-kernel on CUDA tiles, its plain torch version on CPU tiles):
+equal each other or a real char, so equality needs no masks. `stat_routes`
+keys on bucket width and tile dtype; each wrapper keys on the tile's device
+(CUDA kernel on CUDA tiles, its plain torch version on CPU tiles). In order:
 
-  lev_d + jaro_m  K5 fused kernel when both are needed at widths <= 64:
-                  lev_d, jaro_m, jaro_t, prefix and (if needed) inter from
-                  one equality build (strsim_tpu/ops/stats.py:326-374)
-  lev_d           K1 Myers kernel, widths <= 512
-  jaro_m, jaro_t  K2 jaro scan kernel, widths <= 512, int8 and int32
-  inter           K3 occurrence-rank kernel, widths <= 64;
-                  K4 histogram kernel, wider int8 tiles up to 512
-  prefix          plain tensor code everywhere but in K5
-
-Beyond those bounds (extend buckets > 511, wide int32 multiset) the plain
-torch versions run on whatever device the tiles are on, where the JAX engine
-also leaves its TPU kernels for its XLA ones.
+  K5 lev_jaro_fused  lev_d and jaro_m both needed at widths <= 64: lev_d,
+                     jaro_m, jaro_t, prefix and whichever of inter, osa_d,
+                     lcs_len are needed, from one equality build
+                     (strsim_tpu/ops/stats.py:326-374)
+  K6 dp_fused        at least two of {lev_d not from K5, osa_d, lcs_len}, or
+                     lcs_len alone, widths <= 512 (:380-417)
+  K1 levenshtein_myers  lev_d, widths <= 512
+  K2 jaro_scan       jaro_m, jaro_t, widths <= 512, int8 and int32
+  K3 multiset_rank   inter, widths <= 64; K4 multiset_hist: wider int8
+                     tiles up to 512
+  K7 osa_scan        osa_d, widths <= 512
+  K8 bigram          inter2 with ham_m and eq, widths <= 64
+  plain              prefix, ham_m, eq and sdx_eq when no kernel carries
+                     them, and every stat past its kernel's bounds (extend
+                     buckets > 511, wide int32 multiset, bigrams > 64), on
+                     whatever device the tiles are on, where the JAX engine
+                     also leaves its TPU kernels for its XLA forms.
 """
 from __future__ import annotations
 
@@ -32,7 +45,17 @@ from typing import Dict, Tuple
 
 import torch
 
-from strsim_tpu_torch.ops import jaro_cuda, lev_jaro_cuda, levenshtein_cuda, multiset_cuda
+from strsim_tpu_torch.ops import (
+    bigram_cuda,
+    dp_fused_cuda,
+    jaro_cuda,
+    lcs,
+    lev_jaro_cuda,
+    levenshtein_cuda,
+    multiset_cuda,
+    osa_cuda,
+    phonetic,
+)
 
 # jaro lists "prefix" too (its finalizer ignores it) so that jaro and
 # jaro_winkler share one stat set.
@@ -42,6 +65,15 @@ STAT_FIELDS = {
     "jaro_winkler": ("jaro_m", "jaro_t", "prefix"),
     "jaccard": ("inter",),
     "sorensen_dice": ("inter",),
+    "jaccard_bigram": ("inter2", "eq"),
+    "sorensen_dice_bigram": ("inter2", "eq"),
+    "cosine": ("inter",),
+    "overlap": ("inter",),
+    "hamming": ("ham_m",),
+    "lcs_seq": ("lcs_len",),
+    "indel": ("lcs_len",),
+    "osa": ("osa_d",),
+    "soundex": ("sdx_eq",),
 }
 
 
@@ -61,13 +93,65 @@ def row_equal(a, b, len_a, len_b) -> torch.Tensor:
 
 
 def multiset_route(width: int, dtype: torch.dtype) -> str:
-    """Which multiset form a bucket takes: "rank" (K3), "hist" (K4) or
-    "plain" (the occurrence-rank torch version, no kernel)."""
+    """Which multiset form a bucket takes: "multiset_rank" (K3),
+    "multiset_hist" (K4) or "plain" (the occurrence-rank torch version)."""
     if width <= multiset_cuda.RANK_MAX_WIDTH:
-        return "rank"
+        return "multiset_rank"
     if dtype == torch.int8 and width <= multiset_cuda.HIST_MAX_WIDTH:
-        return "hist"
+        return "multiset_hist"
     return "plain"
+
+
+def stat_routes(measures: Tuple[str, ...], width: int, dtype: torch.dtype) -> Dict[str, str]:
+    """{stat: route} for every stat that `measures` need on a bucket of this
+    width and tile dtype. A route is a kernel's launch-count name (see the
+    module docstring) or "plain"."""
+    need = {f for m in measures for f in STAT_FIELDS[m]}
+    routes: Dict[str, str] = {}
+    if "lev_d" in need and "jaro_m" in need and lev_jaro_cuda.supports_width(width):
+        flags = ("inter" in need, "osa_d" in need, "lcs_len" in need)
+        routes.update((f, "lev_jaro_fused") for f in lev_jaro_cuda.fields(*flags))
+    dp = [f for f in ("lev_d", "osa_d", "lcs_len") if f in need and f not in routes]
+    if (len(dp) >= 2 or dp == ["lcs_len"]) and dp_fused_cuda.supports_width(width):
+        routes.update((f, "dp_fused") for f in dp)
+    if "inter2" in need and bigram_cuda.supports_width(width):
+        routes.update((f, "bigram") for f in ("inter2", "ham_m", "eq") if f in need)
+    single = {
+        "lev_d": "levenshtein_myers" if levenshtein_cuda.supports_width(width) else "plain",
+        "jaro_m": "jaro_scan" if jaro_cuda.supports_width(width) else "plain",
+        "inter": multiset_route(width, dtype),
+        "osa_d": "osa_scan" if osa_cuda.supports_width(width) else "plain",
+    }
+    single["jaro_t"] = single["jaro_m"]
+    for f in sorted(need - set(routes)):
+        routes[f] = single.get(f, "plain")
+    return routes
+
+
+# plain torch version of each stat: stat -> (the stats it returns, function)
+_PLAIN = {
+    "lev_d": (("lev_d",), levenshtein_cuda.myers_plain),
+    "jaro_m": (("jaro_m", "jaro_t"), jaro_cuda.jaro_plain),
+    "jaro_t": (("jaro_m", "jaro_t"), jaro_cuda.jaro_plain),
+    "prefix": (("prefix",), lambda a, b, la, lb: shared_prefix_length(a, b)),
+    "inter": (("inter",), multiset_cuda.rank_plain),
+    "inter2": (("inter2",), lambda a, b, la, lb: bigram_cuda.bigram_plain(a, b, la, lb)[0]),
+    "ham_m": (("ham_m",), lambda a, b, la, lb: bigram_cuda.ham_plain(a, b)),
+    "eq": (("eq",), row_equal),
+    "sdx_eq": (("sdx_eq",), phonetic.soundex_equal),
+    "osa_d": (("osa_d",), osa_cuda.osa_plain),
+    "lcs_len": (("lcs_len",), lcs.lcs_plain),
+}
+
+# kernels that return a fixed set of stats: route -> (stats, wrapper)
+_KERNELS = {
+    "levenshtein_myers": (("lev_d",), levenshtein_cuda.levenshtein_distance),
+    "jaro_scan": (("jaro_m", "jaro_t"), jaro_cuda.jaro_match_stats),
+    "multiset_rank": (("inter",), multiset_cuda.multiset_intersection_rank),
+    "multiset_hist": (("inter",), multiset_cuda.multiset_intersection_hist),
+    "osa_scan": (("osa_d",), osa_cuda.osa_distance),
+    "bigram": (("inter2", "ham_m", "eq"), bigram_cuda.bigram_stats),
+}
 
 
 def compute_stats(
@@ -77,33 +161,24 @@ def compute_stats(
     len_b: torch.Tensor,
     measures: Tuple[str, ...],
 ) -> Dict[str, torch.Tensor]:
-    """The union of the stats `measures` need, each computed once, as [B]
-    int32 tensors on the tiles' device."""
-    need = {f for m in measures for f in STAT_FIELDS[m]}
-    width = a.shape[1]
+    """The union of the stats `measures` need, each computed once on the
+    route `stat_routes` gives it, as [B] int32 tensors on the tiles' device."""
+    routes = stat_routes(measures, a.shape[1], a.dtype)
+    args = (a, b, len_a, len_b)
     out: Dict[str, torch.Tensor] = {}
-    if "lev_d" in need and "jaro_m" in need and lev_jaro_cuda.supports_width(width):
-        with_inter = "inter" in need
-        res = lev_jaro_cuda.lev_jaro_stats(a, b, len_a, len_b, with_inter)
-        out.update(zip(lev_jaro_cuda.fields(with_inter), res))
-    if "lev_d" in need and "lev_d" not in out:
-        if levenshtein_cuda.supports_width(width):
-            out["lev_d"] = levenshtein_cuda.levenshtein_distance(a, b, len_a, len_b)
+    for stat, route in routes.items():
+        if stat in out:  # an earlier call on its route returned it
+            continue
+        mine = {f for f, r in routes.items() if r == route}
+        if route == "lev_jaro_fused":
+            flags = dict(with_inter="inter" in mine, with_osa="osa_d" in mine,
+                         with_lcs="lcs_len" in mine)
+            names, res = lev_jaro_cuda.fields(**flags), lev_jaro_cuda.lev_jaro_stats(*args, **flags)
+        elif route == "dp_fused":
+            flags = ("lev_d" in mine, "osa_d" in mine, "lcs_len" in mine)
+            names, res = dp_fused_cuda.fields(*flags), dp_fused_cuda.dp_fused_stats(*args, *flags)
         else:
-            out["lev_d"] = levenshtein_cuda.myers_plain(a, b, len_a, len_b)
-    if "jaro_m" in need and "jaro_m" not in out:
-        if jaro_cuda.supports_width(width):
-            out["jaro_m"], out["jaro_t"] = jaro_cuda.jaro_match_stats(a, b, len_a, len_b)
-        else:
-            out["jaro_m"], out["jaro_t"] = jaro_cuda.jaro_plain(a, b, len_a, len_b)
-    if "prefix" in need and "prefix" not in out:
-        out["prefix"] = shared_prefix_length(a, b)
-    if "inter" in need and "inter" not in out:
-        route = multiset_route(width, a.dtype)
-        if route == "rank":
-            out["inter"] = multiset_cuda.multiset_intersection_rank(a, b, len_a, len_b)
-        elif route == "hist":
-            out["inter"] = multiset_cuda.multiset_intersection_hist(a, b, len_a, len_b)
-        else:
-            out["inter"] = multiset_cuda.rank_plain(a, b, len_a, len_b)
-    return out
+            names, fn = _PLAIN[stat] if route == "plain" else _KERNELS[route]
+            res = fn(*args)
+        out.update(zip(names, res if isinstance(res, tuple) else (res,)))
+    return {f: out[f] for f in routes}

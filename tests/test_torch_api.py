@@ -311,7 +311,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import strsim_tpu_torch, strsim_tpu_torch.convert, chip_smoke\n"
-        "from strsim_tpu_torch.ops import _build, jaro_cuda, lev_jaro_cuda, levenshtein_cuda, multiset_cuda, stats\n"
+        "from strsim_tpu_torch.ops import (_build, bigram_cuda, bitwords, dp_fused_cuda, finalize, jaro_cuda,\n"
+        "    lcs, lev_jaro_cuda, levenshtein_cuda, multiset_cuda, oracle, osa_cuda, phonetic, stats)\n"
+        "from strsim_tpu_torch.models import measures, pipeline\n"
+        "from strsim_tpu_torch.utils import encode, metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'strsim_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

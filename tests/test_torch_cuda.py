@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import strsim_tpu_torch as tst
-from strsim_tpu_torch.ops import _build, jaro_cuda, lev_jaro_cuda, levenshtein_cuda, multiset_cuda
+from strsim_tpu_torch.ops import (_build, bigram_cuda, dp_fused_cuda, jaro_cuda, lev_jaro_cuda,
+                                  levenshtein_cuda, multiset_cuda, osa_cuda)
 from strsim_tpu_torch.ops.oracle import ORACLES
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -23,6 +24,8 @@ from chip_smoke import make_tiles  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 FIVE = ("levenshtein", "jaro", "jaro_winkler", "jaccard", "sorensen_dice")
+EXT = ("jaccard_bigram", "sorensen_dice_bigram", "cosine", "overlap", "hamming",
+       "lcs_seq", "indel", "osa", "soundex")
 
 
 @pytest.fixture
@@ -56,6 +59,25 @@ CASES = [
     pytest.param(partial(lev_jaro_cuda.lev_jaro_stats, with_inter=False),
                  partial(lev_jaro_cuda.lev_jaro_plain, with_inter=False),
                  (7, 31, 47, 63, 64), (np.int8, np.int32), id="lev_jaro_fused"),
+    pytest.param(partial(lev_jaro_cuda.lev_jaro_stats, with_inter=True, with_osa=True, with_lcs=True),
+                 partial(lev_jaro_cuda.lev_jaro_plain, with_inter=True, with_osa=True, with_lcs=True),
+                 (7, 31, 33, 63, 64), (np.int8, np.int32), id="lev_jaro_fused_osa_lcs"),
+    pytest.param(partial(lev_jaro_cuda.lev_jaro_stats, with_osa=True),
+                 partial(lev_jaro_cuda.lev_jaro_plain, with_osa=True),
+                 (15, 63), (np.int8, np.int32), id="lev_jaro_fused_osa"),
+    pytest.param(partial(lev_jaro_cuda.lev_jaro_stats, with_lcs=True),
+                 partial(lev_jaro_cuda.lev_jaro_plain, with_lcs=True),
+                 (15, 63), (np.int8, np.int32), id="lev_jaro_fused_lcs"),
+    *(pytest.param(partial(dp_fused_cuda.dp_fused_stats, with_lev=lev, with_osa=osa, with_lcs=lcs),
+                   partial(dp_fused_cuda.dp_fused_plain, with_lev=lev, with_osa=osa, with_lcs=lcs),
+                   (7, 33, 63, 95, 160, 511), (np.int8, np.int32),
+                   id="dp_fused_" + "+".join(n for n, on in (("lev", lev), ("osa", osa), ("lcs", lcs)) if on))
+      for lev, osa, lcs in ((True, True, True), (True, True, False), (False, True, True),
+                            (False, False, True), (True, False, True))),
+    pytest.param(osa_cuda.osa_distance, osa_cuda.osa_plain,
+                 (7, 31, 33, 63, 95, 255, 511), (np.int8, np.int32), id="osa_scan"),
+    pytest.param(bigram_cuda.bigram_stats, bigram_cuda.bigram_plain,
+                 (1, 2, 7, 31, 63, 64), (np.int8, np.int32), id="bigram"),
 ]
 
 
@@ -94,3 +116,27 @@ def test_pipeline_on_the_card_matches_oracle(device):
         assert tst.compute(m, col_a[:401], col_b[:401], config=cfg).tobytes() == want[:401].tobytes(), m
     assert set(_build.launch_counts()) >= {"lev_jaro_fused", "levenshtein_myers", "jaro_scan",
                                            "multiset_rank", "multiset_hist"}
+
+
+
+def test_extension_pipeline_on_the_card_matches_oracle(device):
+    """The nine extensions and all fourteen together on the card: short rows
+    (K5 with its OSA/LCS outputs, K8), long ASCII rows (K6, K2, K4 and the
+    plain bigram and soundex forms), then osa and lcs_seq alone (K7, K6)."""
+    rng = np.random.default_rng(1)
+    words = ["Robert", "Rupert", "a", "b", "смит", "你好", "😀a😀", "", "martha", "marhta"]
+    col_a = [words[i] for i in rng.integers(0, len(words), 300)] + [None]
+    col_b = [words[i] for i in rng.integers(0, len(words), 300)] + ["x"]
+    for k in range(30):
+        col_a += ["Ashcraft" * 12 + "x" * k]
+        col_b += ["Ashcroft" * 12]
+    cfg = tst.get_config().replace(device="cuda", host_short_circuit_rows=0)
+    _build.reset_launch_counts()
+    out = tst.compute_many(FIVE + EXT, col_a, col_b, config=cfg)
+    for m in FIVE + EXT:
+        want = np.array([np.nan if a is None or b is None else ORACLES[m](a, b) for a, b in zip(col_a, col_b)])
+        assert out[m].tobytes() == want.tobytes(), m
+    for m in ("osa", "lcs_seq"):
+        assert tst.compute(m, col_a, col_b, config=cfg).tobytes() == out[m].tobytes(), m
+    assert set(_build.launch_counts()) >= {"lev_jaro_fused", "lev_jaro_fused.osa", "lev_jaro_fused.lcs",
+                                           "dp_fused", "osa_scan", "bigram", "jaro_scan", "multiset_hist"}

@@ -102,9 +102,9 @@ def test_router_takes_fused_kernel(monkeypatch, width, measures, expect):
     calls = []
     real = lev_jaro_cuda.lev_jaro_stats
 
-    def spy(a, b, la, lb, with_inter=False):
+    def spy(a, b, la, lb, with_inter=False, **flags):
         calls.append(with_inter)
-        return real(a, b, la, lb, with_inter)
+        return real(a, b, la, lb, with_inter, **flags)
 
     monkeypatch.setattr(lev_jaro_cuda, "lev_jaro_stats", spy)
     a, b, la, lb = as_torch(*make_tiles(width, 24, width, np.int8))
@@ -195,8 +195,9 @@ def test_rank_wrapper_rejects_wide_tiles():
 
 
 @pytest.mark.parametrize("width,dtype,route", [
-    (7, torch.int8, "rank"), (63, torch.int32, "rank"), (64, torch.int8, "rank"),
-    (95, torch.int8, "hist"), (511, torch.int8, "hist"), (95, torch.int32, "plain"),
+    (7, torch.int8, "multiset_rank"), (63, torch.int32, "multiset_rank"),
+    (64, torch.int8, "multiset_rank"), (95, torch.int8, "multiset_hist"),
+    (511, torch.int8, "multiset_hist"), (95, torch.int32, "plain"),
     (1023, torch.int8, "plain"),
 ])
 def test_multiset_route(width, dtype, route):
