@@ -9,12 +9,15 @@ Phases, one line of findings each (any failure exits non-zero):
   2. build: every CUDA kernel from csrc/, one nvcc per source in parallel;
   3. kernels: each kernel against its plain torch version on the card, at the
      main path's shapes (65536-row blocks at each ladder width it serves, int8
-     and int32 tiles, seeded inputs incl. astral codepoints), K5 with its
+     and int32 tiles, seeded inputs incl. astral codepoints, one set of tiles
+     per width and dtype that every kernel there reads), K5 with its
      multiset, OSA and LCS outputs on and off, K6 with all three recurrences
      at every width and with {lev, osa}, {osa, lcs}, {lcs} at w31/w63/w255;
      integers must match exactly; both times from CUDA events, beside the
      least time the card could take (`bound_ms`, from this run's lengths:
      see `bound`); for K5 also the time of the separate kernels it replaces;
+     K9 (its m and both flag tensors) and K10 at every width on both dtypes,
+     K4 at every width on int8 (a forced "pallas_hist" sends it narrow tiles);
      with --kernels, the run ends here (an A/B of kernels between two trees
      copies this script into each and runs it there);
   4. end to end: bench.py's make_pairs(1_000_000) and make_wide_pairs(200_000)
@@ -22,7 +25,15 @@ Phases, one line of findings each (any failure exits non-zero):
      (levenshtein, osa, lcs_seq, indel), and through each of the fourteen
      measure functions, with the launch counts zeroed just before and read
      just after (K1-K8 must all launch, K5 also with its OSA and LCS outputs
-     on); scores byte-identical to the pure-Python oracle on all fourteen
+     on); then the forced-implementation path, compute_many over the five
+     with levenshtein_impl="pallas", jaro_impl="pallas" on both workloads
+     whole, and every other forced combination (DIFFERENTIAL and
+     `single_overrides`, which the tests/test_torch_forced_*.py files share)
+     on 20,000 rows of each, all byte-identical to the default config's
+     scores, each with its own launch counts: every kernel that stat_routes
+     names for it on the buckets it formed must launch (K9 and K10 on the
+     forced path);
+     scores byte-identical to the pure-Python oracle on all fourteen
      measures for 20K rows of make_pairs, on the five for 20K rows of
      make_wide_pairs and on the nine extensions for 4K of them (the OSA and
      LCS oracles are O(la * lb) a row), the 1,115 golden cases and the README
@@ -77,9 +88,28 @@ KERNELS = {
                  "strsim_tpu/ops/osa_pallas_scan.py:59"),
     "bigram": ("strsim_tpu_torch/csrc/bigram.cu",
                "strsim_tpu/ops/bigram_pallas.py:62"),
+    "jaro_flags": ("strsim_tpu_torch/csrc/jaro_flags.cu",
+                   "strsim_tpu/ops/jaro_pallas.py:36"),
+    "levenshtein_wavefront": ("strsim_tpu_torch/csrc/levenshtein_wavefront.cu",
+                              "strsim_tpu/ops/levenshtein_pallas.py:41"),
 }
 # launch counts the main path must also show: K5 with its OSA / LCS outputs on
 VARIANTS = ("lev_jaro_fused.osa", "lev_jaro_fused.lcs")
+# the forced-implementation path (tests/test_differential.py:50-52) and the
+# kernels only it reaches
+FORCED = {"levenshtein_impl": "pallas", "jaro_impl": "pallas"}
+FORCED_KERNELS = ("jaro_flags", "levenshtein_wavefront")
+FORCED_ROWS = 20_000
+# FORCED and the implementation matrix of tests/test_differential.py:61-69;
+# with `single_overrides` the forced configurations that this script and the
+# tests/test_torch_forced_*.py files drive
+DIFFERENTIAL = (
+    FORCED,
+    {"levenshtein_impl": "myers", "jaro_impl": "bitmask", "multiset_impl": "chunked"},
+    {"levenshtein_impl": "pallas_scan", "jaro_impl": "bitmask", "multiset_impl": "pallas_scan"},
+    {"levenshtein_impl": "myers", "jaro_impl": "bitmask", "multiset_impl": "xla"},
+    {"levenshtein_impl": "wavefront", "jaro_impl": "scan", "multiset_impl": "table"},
+)
 
 # The card's peaks for the bound: device memory at 3.35 TB/s, and 132 SMs of
 # 64 INT32 lanes at the SM clock nvidia-smi reports as its maximum (H100 SXM).
@@ -140,6 +170,8 @@ def work_ops(name: str, flags: dict, la, lb) -> float:
     histogram (one increment per char of one side, one test-and-decrement
     per char of the other)."""
     wa, wb = _words(la), _words(lb)
+    # K10 computes K1's function, K9 the scan of K2's (its flags are bytes)
+    name = {"levenshtein_wavefront": "levenshtein_myers", "jaro_flags": "jaro_scan"}.get(name, name)
     if name in ("levenshtein_myers", "osa_scan", "dp_fused"):  # pattern a, text b
         on = {"levenshtein_myers": {"with_lev": True}, "osa_scan": {"with_osa": True}}.get(name, flags)
         per_word = (MYERS_OPS * on.get("with_lev", False) + OSA_OPS * on.get("with_osa", False)
@@ -165,13 +197,13 @@ def work_ops(name: str, flags: dict, la, lb) -> float:
     return float(np.sum(ops))
 
 
-def bound(name: str, flags: dict, lens, elem_bytes: int, n_out: int, clock_hz: float):
+def bound(name: str, flags: dict, lens, elem_bytes: int, out_bytes: int, clock_hz: float):
     """(ms, "bytes" or "operations"): the larger of the bytes the function
-    must move (each row's la + lb chars and two lengths read once, its outputs
-    written once) over the memory rate, and its integer operations
-    (`work_ops`) over the INT32 peak."""
+    must move (each row's la + lb chars and two lengths read once, its
+    `out_bytes` of outputs written once) over the memory rate, and its
+    integer operations (`work_ops`) over the INT32 peak."""
     la, lb = lens[0].astype(np.int64), lens[1].astype(np.int64)
-    t_bytes = float(np.sum((la + lb) * elem_bytes + 8 + 4 * n_out)) / HBM_BYTES_PER_S
+    t_bytes = float(np.sum((la + lb) * elem_bytes + 8 + out_bytes)) / HBM_BYTES_PER_S
     t_ops = work_ops(name, flags, la, lb) / (INT32_LANES * clock_hz)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
@@ -261,8 +293,9 @@ def kernel_cases():
     arguments that select the kernel's outputs."""
     from functools import partial
 
-    from strsim_tpu_torch.ops import (bigram_cuda, dp_fused_cuda, jaro_cuda, lev_jaro_cuda,
-                                      levenshtein_cuda, multiset_cuda, osa_cuda)
+    from strsim_tpu_torch.ops import (bigram_cuda, dp_fused_cuda, jaro_cuda, jaro_flags_cuda,
+                                      lev_jaro_cuda, levenshtein_cuda,
+                                      levenshtein_wavefront_cuda, multiset_cuda, osa_cuda)
 
     def variants(kernel, plain, *flag_sets):
         return [(flags, partial(kernel, **flags), partial(plain, **flags)) for flags in flag_sets]
@@ -278,14 +311,18 @@ def kernel_cases():
         ("jaro_scan", [({}, jaro_cuda.jaro_match_stats, jaro_cuda.jaro_plain)], LADDER, both),
         ("multiset_rank", [({}, multiset_cuda.multiset_intersection_rank,
                             multiset_cuda.rank_plain)], NARROW, both),
+        # K4 serves int8 above 63 under "auto" and every width under "pallas_hist"
         ("multiset_hist", [({}, multiset_cuda.multiset_intersection_hist, multiset_cuda.hist_plain)],
-         tuple(w for w in LADDER if w > 63), (np.int8,)),
+         LADDER, (np.int8,)),
         ("lev_jaro_fused", k5, NARROW, both),
         ("dp_fused", k6({"with_lev": True, "with_osa": True, "with_lcs": True}), LADDER, both),
         ("dp_fused", k6({"with_lev": True, "with_osa": True}, {"with_osa": True, "with_lcs": True},
                         {"with_lcs": True}), (31, 63, 255), both),
         ("osa_scan", [({}, osa_cuda.osa_distance, osa_cuda.osa_plain)], LADDER, both),
         ("bigram", [({}, bigram_cuda.bigram_stats, bigram_cuda.bigram_plain)], NARROW, both),
+        ("jaro_flags", [({}, jaro_flags_cuda.jaro_flag_scan, jaro_cuda.greedy_scan)], LADDER, both),
+        ("levenshtein_wavefront", [({}, levenshtein_wavefront_cuda.levenshtein_distance,
+                                    levenshtein_wavefront_cuda.wavefront_plain)], LADDER, both),
     ]
 
 
@@ -311,6 +348,17 @@ def check_kernels(device, clock_hz: float, only=None) -> dict:
     import torch
 
     rng = np.random.default_rng(SEED)
+    tiles = {}  # (width, dtype) -> (card tensors, lengths): one set for every kernel
+
+    def tiles_for(width, dtype):
+        key = (width, np.dtype(dtype).name)
+        if key not in tiles:
+            packed, lens = make_tiles(rng, BLOCK, width, dtype)
+            codes = torch.from_numpy(packed).to(device)
+            lengths = torch.from_numpy(lens).to(device)
+            tiles[key] = (codes[:, :width], codes[:, width:], lengths[0], lengths[1]), lens
+        return tiles[key]
+
     summary = {}
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as log:
@@ -321,10 +369,7 @@ def check_kernels(device, clock_hz: float, only=None) -> dict:
                                               "bound_ms": 0.0, "bound_by": {}})
             for width in widths:
                 for dtype in dtypes:
-                    packed, lens = make_tiles(rng, BLOCK, width, dtype)
-                    codes = torch.from_numpy(packed).to(device)
-                    lengths = torch.from_numpy(lens).to(device)
-                    args = (codes[:, :width], codes[:, width:], lengths[0], lengths[1])
+                    args, lens = tiles_for(width, dtype)
                     for flags, kernel, plain in pairs:
                         label = f"{name} {'+'.join(k[5:] for k, on in flags.items() if on) or '-'} w{width} {np.dtype(dtype).name}"
                         got = _as_tuple(kernel(*args))
@@ -337,13 +382,14 @@ def check_kernels(device, clock_hz: float, only=None) -> dict:
                                 raise AssertionError(f"{label}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
                             e = int((g.long() - w.long()).abs().max())
                             if e:
-                                bad = int(torch.nonzero(g != w)[0, 0])
+                                bad = tuple(torch.nonzero(g != w)[0].tolist())
                                 raise AssertionError(
-                                    f"{label}: kernel != plain (max abs err {e}; row {bad}: "
-                                    f"la={int(lens[0, bad])} lb={int(lens[1, bad])} "
+                                    f"{label}: kernel != plain (max abs err {e}; at {bad}: "
+                                    f"la={int(lens[0, bad[0]])} lb={int(lens[1, bad[0]])} "
                                     f"got {int(g[bad])} want {int(w[bad])})")
                         k_ms = time_ms(lambda: kernel(*args), 5)
-                        b_ms, b_by = bound(name, flags, lens, np.dtype(dtype).itemsize, len(got),
+                        out_bytes = sum(g[0].numel() * g.element_size() for g in got)
+                        b_ms, b_by = bound(name, flags, lens, np.dtype(dtype).itemsize, out_bytes,
                                            clock_hz)
                         record = {"name": name, "flags": flags, "width": width,
                                   "dtype": np.dtype(dtype).name, "rows": BLOCK, "ms": k_ms,
@@ -415,16 +461,17 @@ def run_workloads(st, workloads) -> dict:
     (RunMetrics), each of the five measure functions, then the same over all
     fourteen, compute_many over (levenshtein, osa, lcs_seq, indel) and each
     of the nine extension functions. Every result must equal compute_many
-    over all fourteen. Returns {label: compute_many(all fourteen) scores}."""
+    over all fourteen. Returns ({label: compute_many(all fourteen) scores},
+    {label: the five-measure pass's RunMetrics})."""
     from strsim_tpu_torch.models.pipeline import compute_scores
     from strsim_tpu_torch.utils.metrics import RunMetrics
 
-    scores = {}
+    scores, five_metrics = {}, {}
     for label, col_a, col_b in workloads:
         n = len(col_a)
         five, dt = _timed(lambda: st.compute_many(FIVE, col_a, col_b))
         print(f"  {label}: compute_many(five) {n} pairs in {dt:.3f} s = {n / dt:.0f} pairs/s", flush=True)
-        rm = RunMetrics()
+        rm = five_metrics[label] = RunMetrics()
         compute_scores(col_a, col_b, FIVE, metrics=rm)
         _phases(label, "five", rm)
         many, dt = _timed(lambda: st.compute_many(ALL, col_a, col_b))
@@ -443,7 +490,107 @@ def run_workloads(st, workloads) -> dict:
                 if res is not None and res.tobytes() != many[m].tobytes():
                     raise AssertionError(f"{label}: {what} differs from compute_many(all 14) on {m}")
         scores[label] = many
-    return scores
+    return scores, five_metrics
+
+
+def single_overrides():
+    """Each family forced to each of its values."""
+    from strsim_tpu_torch.config import IMPL_VALUES
+
+    return [{f"{family}_impl": value} for family, values in IMPL_VALUES.items()
+            for value in values if value != "auto"]
+
+
+def forced_combinations():
+    """Every forced configuration but FORCED (which run_forced drives)."""
+    return [*DIFFERENTIAL[1:], *single_overrides()]
+
+
+def routed_kernels(rm, measures, cfg) -> set:
+    """The kernels `stat_routes` names for `measures` under `cfg` on the
+    buckets (width, tile dtype) of the run that filled RunMetrics `rm`."""
+    import torch
+
+    from strsim_tpu_torch.ops.stats import stat_routes
+
+    return {route for bm in rm.buckets.values()
+            for route in stat_routes(measures, bm.width, getattr(torch, bm.dtype), cfg.impls()).values()
+            if route != "plain"}
+
+
+def require_launched(what, kernels) -> dict:
+    """The launch counts since the last reset; raises unless each of
+    `kernels` launched."""
+    from strsim_tpu_torch.ops import _build
+
+    counts = _build.launch_counts()
+    missing = sorted(k for k in kernels if counts.get(k, 0) <= 0)
+    if missing:
+        raise AssertionError(f"kernels not launched on {what}: {missing} (launches {counts})")
+    return counts
+
+
+def _same_scores(label, what, got: dict, want: dict, rows=slice(None)) -> None:
+    for m, v in got.items():
+        if v.tobytes() != want[m][rows].tobytes():
+            bad = int(np.nonzero(v != want[m][rows])[0][0])
+            raise AssertionError(f"{label}: {what} differs from the default config on {m} "
+                                 f"at row {bad}: {v[bad]!r} against {want[m][rows][bad]!r}")
+
+
+def run_forced(st, workloads, scores, five_metrics) -> dict:
+    """The forced-implementation path: compute_many over the five measures
+    with FORCED on every workload whole, byte-identical to the default
+    config's scores (`scores`, from run_workloads). Every kernel that the
+    router names for FORCED on the workloads' buckets (`five_metrics`, from
+    the default five-measure pass) must launch, K9 and K10 among them.
+    Returns the launch counts."""
+    from strsim_tpu_torch.ops import _build
+
+    cfg = st.get_config().replace(**FORCED)
+    _build.reset_launch_counts()
+    want = set(FORCED_KERNELS)
+    for label, col_a, col_b in workloads:
+        n = len(col_a)
+        got, dt = _timed(lambda: st.compute_many(FIVE, col_a, col_b, config=cfg))
+        _same_scores(label, "compute_many(five) forced", got, scores[label])
+        want |= routed_kernels(five_metrics[label], FIVE, cfg)
+        print(f"  {label}: compute_many(five) levenshtein_impl=pallas, jaro_impl=pallas {n} pairs "
+              f"in {dt:.3f} s = {n / dt:.0f} pairs/s, byte-identical to the default config",
+              flush=True)
+    counts = require_launched("the forced path", want)
+    print(f"  launches on the forced path: {counts}", flush=True)
+    return counts
+
+
+def run_forced_combinations(st, workloads, scores) -> None:
+    """Every other forced combination (`forced_combinations`) over all
+    fourteen measures on the first FORCED_ROWS rows of every workload,
+    byte-identical to the default config's scores, each with its launch
+    counts zeroed before and read after: every kernel that the router names
+    for it on the buckets it formed must launch."""
+    from strsim_tpu_torch.models.pipeline import compute_scores
+    from strsim_tpu_torch.ops import _build
+    from strsim_tpu_torch.utils.metrics import RunMetrics
+
+    t0 = time.perf_counter()
+    combos = forced_combinations()
+    rows = slice(0, FORCED_ROWS)
+    for overrides in combos:
+        cfg = st.get_config().replace(**overrides)
+        _build.reset_launch_counts()
+        want = set()
+        for label, col_a, col_b in workloads:
+            rm = RunMetrics()
+            res = compute_scores(col_a[rows], col_b[rows], ALL, config=cfg, metrics=rm)
+            _same_scores(label, f"compute_many(all 14) {overrides}", {m: v for m, (v, _) in res.items()},
+                         scores[label], rows)
+            want |= routed_kernels(rm, ALL, cfg)
+        counts = require_launched(f"forced {overrides}", want)
+        print(f"  forced {overrides}: kernels {sorted(counts)}", flush=True)
+    print(f"  {len(combos)} other forced combinations x {len(workloads)} workloads, "
+          f"{FORCED_ROWS} rows each, all fourteen measures: byte-identical to the default config, "
+          f"every routed kernel launched ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def check_golden_and_demo(st) -> None:
@@ -516,7 +663,7 @@ def main(argv) -> int:
     if only is not None:
         return 0 if set(only) <= set(summary) else 2
 
-    print("phase 4 end to end:", flush=True)
+    print(f"phase 4 end to end (phases 1-3 took {time.perf_counter() - t_start:.1f} s):", flush=True)
     sys.path.insert(0, str(ROOT))
     import bench
 
@@ -525,12 +672,13 @@ def main(argv) -> int:
         ("make_wide_pairs(200_000)", *bench.make_wide_pairs(200_000)),
     ]
     _build.reset_launch_counts()
-    scores = run_workloads(st, workloads)
-    launches = _build.launch_counts()
+    scores, five_metrics = run_workloads(st, workloads)
+    launches = require_launched("the main path", [k for k in (*KERNELS, *VARIANTS)
+                                                  if k not in FORCED_KERNELS])
     print(f"  launches on the main path: {launches}", flush=True)
-    missing = [k for k in (*KERNELS, *VARIANTS) if launches.get(k, 0) <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    forced_launches = run_forced(st, workloads, scores, five_metrics)
+    launches.update((k, forced_launches[k]) for k in FORCED_KERNELS)
+    run_forced_combinations(st, workloads, scores)
     for label, col_a, col_b in workloads:
         valid = np.array([x is not None and y is not None for x, y in zip(col_a, col_b)])
         for m in ALL:

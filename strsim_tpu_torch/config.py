@@ -2,16 +2,32 @@
 
 Same knobs as `strsim_tpu.config.StrsimConfig` for everything the main path
 reads: the bucket ladder, the overflow/extend policy, batch rounding, tile
-narrowing, the equal fast path and the small-input host short-circuit. The
-TPU-only fields (mesh, compile and execute deadlines, host fallbacks, Pallas
-block rows, per-family kernel overrides) have no counterpart: kernels here
-are chosen by bucket width and tile dtype (`ops/stats.py`), and a kernel that
-fails to build or launch raises instead of falling back.
+narrowing, the equal fast path, the small-input host short-circuit and the
+six per-family kernel overrides (`levenshtein_impl` ... `lcs_impl`, with the
+JAX engine's values). The TPU-only fields (mesh, compile and execute
+deadlines, host fallbacks, Pallas block rows) have no counterpart. "auto"
+picks a kernel by bucket width and tile dtype, as the JAX engine does on a
+TPU; a forced value picks the counterpart of the JAX function it selects
+(`ops/stats.py`). A kernel that fails to build or launch raises instead of
+falling back.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
+
+# Values of each per-family override, as strsim_tpu/config.py:38-93 documents
+# them ("xla" aliases "myers" for levenshtein and "bitmask" for jaro). The
+# kernel each forced value reaches is in ops/stats.py.
+IMPL_VALUES: Dict[str, Tuple[str, ...]] = {
+    "levenshtein": ("auto", "myers", "xla", "pallas_scan", "wavefront", "pallas"),
+    "jaro": ("auto", "bitmask", "xla", "scan", "pallas", "pallas_scan", "pallas_scan_h",
+             "pallas_scan_f"),
+    "multiset": ("auto", "pallas_scan", "pallas_hist", "chunked", "xla", "table"),
+    "osa": ("auto", "myers", "pallas_scan"),
+    "bigram": ("auto", "xla", "pallas_scan"),
+    "lcs": ("auto", "xla", "pallas_scan"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,9 +65,32 @@ class StrsimConfig:
     # crossover).
     host_short_circuit_rows: int = 0
 
+    # Kernel per measure family (IMPL_VALUES). "auto" takes what the JAX
+    # engine takes on a TPU: its Pallas kernels' counterparts up to width 512
+    # (K5 for lev + jaro at widths <= 64), plain torch past them. A forced
+    # value takes the counterpart of the JAX function it forces: a Pallas
+    # kernel's CUDA kernel (levenshtein "pallas" -> K10 levenshtein_wavefront,
+    # jaro "pallas" -> K9 jaro_flags), an XLA form's plain torch version.
+    levenshtein_impl: str = "auto"
+    jaro_impl: str = "auto"
+    multiset_impl: str = "auto"
+    osa_impl: str = "auto"
+    bigram_impl: str = "auto"
+    lcs_impl: str = "auto"
+
     # torch device for the stat kernels. "cuda" raises when no GPU is
     # present; "cpu" runs the plain torch versions of every kernel.
     device: str = "cuda"
+
+    def __post_init__(self):
+        for family, values in IMPL_VALUES.items():
+            value = getattr(self, f"{family}_impl")
+            if value not in values:
+                raise ValueError(f"{family}_impl={value!r}: expected one of {values}")
+
+    def impls(self) -> Dict[str, str]:
+        """{family: override} for the router (ops/stats.py:resolve_impls)."""
+        return {family: getattr(self, f"{family}_impl") for family in IMPL_VALUES}
 
     def bucket_for(self, max_len: int) -> int:
         for edge in self.buckets:

@@ -14,14 +14,13 @@ import numpy as np
 from strsim_tpu_torch.config import StrsimConfig
 from strsim_tpu_torch.utils.encode import EncodedColumn
 
-# strsim_tpu.StrsimConfig fields with no counterpart here: kernel overrides,
-# host fallbacks and deadlines, Pallas blocks, the device mesh and placement,
-# and the native finalize (bit-identical to the numpy finalizers used here).
+# strsim_tpu.StrsimConfig fields with no counterpart here: host fallbacks and
+# deadlines, Pallas blocks, the device mesh and placement, and the native
+# finalize (bit-identical to the numpy finalizers used here). The six kernel
+# overrides carry over.
 DROPPED_FIELDS = frozenset({
-    "levenshtein_impl", "jaro_impl", "multiset_impl", "osa_impl", "bigram_impl",
-    "lcs_impl", "native_finalize", "pallas_block_rows", "compile_timeout_s",
-    "fallback", "execute_timeout_s", "batch_axis", "data_parallel_devices",
-    "device",
+    "native_finalize", "pallas_block_rows", "compile_timeout_s", "fallback",
+    "execute_timeout_s", "batch_axis", "data_parallel_devices", "device",
 })
 
 

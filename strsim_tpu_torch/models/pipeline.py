@@ -43,12 +43,13 @@ def _round_batch(n: int, cfg: StrsimConfig) -> int:
 
 def _block_rows(width: int, cfg: StrsimConfig, measures: Tuple[str, ...], dtype) -> int:
     """Max rows per stat call, a power of two. The plain multiset and bigram
-    forms (wide int32 and extend buckets, bigrams wider than 64) hold a
+    forms (wide int32 and extend buckets, bigrams wider than 64, and any
+    width under a forced XLA multiset or bigram value) hold a
     [rows, 16, L] compare tensor and the plain soundex a few [rows, L]
     tensors, so blocks that run one of them are capped at 2^28 / (16 L)
     rows; the kernels hold O(rows) state."""
     cap = cfg.max_batch_block
-    routes = stat_routes(measures, width, _torch_dtype(dtype))
+    routes = stat_routes(measures, width, _torch_dtype(dtype), cfg.impls())
     if any(routes.get(f) == "plain" for f in ("inter", "inter2", "sdx_eq")):
         cap = min(cap, max(cfg.min_batch, (1 << 28) // max(16 * width, 1)))
     b = cfg.min_batch
@@ -238,17 +239,18 @@ def _device_dispatch(measures, a, b, la, lb, sel, width, cfg, device):
     dev_codes = torch.from_numpy(packed).to(device)
     dev_lens = torch.from_numpy(lens).to(device)
     fields = _stat_fields(measures)
+    impls = cfg.impls()
     outs = []
     for start in range(0, n_pad, block):
         rows = slice(start, start + block)
         # column slices of the packed tile: row stride 2 * width, no copy
         stats = compute_stats(
             dev_codes[rows, :width], dev_codes[rows, width:],
-            dev_lens[0, rows], dev_lens[1, rows], measures,
+            dev_lens[0, rows], dev_lens[1, rows], measures, impls,
         )
         outs.append(torch.stack([stats[f] for f in fields]))
     return {
-        "sel": sel, "width": width, "n_pad": n_pad, "lens_a": lens_a,
+        "sel": sel, "width": width, "dtype": np.dtype(dtype).name, "n_pad": n_pad, "lens_a": lens_a,
         "lens_b": lens_b, "outs": outs, "dispatch_dt": tm.lap(),
     }
 
@@ -269,6 +271,7 @@ def _device_collect(out, measures, item, metrics=None):
     if metrics is not None:
         width = item["width"]
         bm = metrics.bucket(width)
+        bm.dtype = item["dtype"]
         bm.rows += int(sel.size)
         bm.padded_rows += int(item["n_pad"] - sel.size)
         bm.char_lanes += int(sel.size) * width

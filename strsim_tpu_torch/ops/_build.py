@@ -92,6 +92,14 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
         "bigram.cu",
         {"strsim_bigram": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     ),
+    "jaro_flags": (
+        "jaro_flags.cu",
+        {"strsim_jaro_flags": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    ),
+    "levenshtein_wavefront": (
+        "levenshtein_wavefront.cu",
+        {"strsim_levenshtein_wavefront": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P]},
+    ),
 }
 
 _lock = threading.Lock()

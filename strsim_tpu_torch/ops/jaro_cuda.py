@@ -4,7 +4,9 @@
 on CUDA tiles and runs `jaro_plain` on CPU tiles. `jaro_plain` is the greedy
 scan in plain torch, the counterpart of
 `strsim_tpu/ops/jaro_bitmask.py:jaro_match_stats_bitmask`; the pipeline also
-uses it on CUDA for extend buckets wider than the kernel's 512.
+uses it on CUDA for extend buckets wider than the kernel's 512. Its parts,
+`greedy_scan`, `transposition_count` and `patch_one_one`, also serve K9
+(`ops/jaro_flags_cuda.py`).
 
 Contract (both forms, every row; reference strsim.rs:197-243): bound =
 max(la, lb) // 2 - 1; a-positions i < min(la, lb + bound) in order each flag
@@ -43,9 +45,19 @@ def jaro_match_stats(a, b, len_a, len_b) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def jaro_plain(a, b, len_a, len_b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch greedy scan on any device: one step per a-position over
-    [B, L] flag tensors, then the transposition count from the two
-    rank-ordered compactions of the matched chars."""
+    """Plain torch (m, t) on any device: `greedy_scan`, `transposition_count`
+    and the len-1/len-1 patch, the steps of
+    strsim_tpu/ops/jaro_pallas.py:jaro_match_stats_pallas."""
+    m, matched, flagged = greedy_scan(a, b, len_a, len_b)
+    t = transposition_count(a, b, matched, flagged)
+    return patch_one_one(a, b, len_a, len_b, m, t)
+
+
+def greedy_scan(a, b, len_a, len_b) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The greedy match scan alone, one step per a-position over [B, L] flag
+    tensors: ([B] int32 m, [B, L] bool matched_a, [B, L] bool flagged_b),
+    what strsim_tpu/ops/jaro_pallas.py:_kernel emits. m counts the flags
+    before any len-1/len-1 patch (those rows have an empty window: 0)."""
     n, width = a.shape
     dev = a.device
     la = len_a.long()
@@ -68,16 +80,28 @@ def jaro_plain(a, b, len_a, len_b) -> Tuple[torch.Tensor, torch.Tensor]:
         first = cand.to(torch.uint8).argmax(1)  # first True (ties -> first)
         flagged |= (jj[None, :] == first[:, None]) & found[:, None]
         matched[:, i] = found
+    return matched.sum(1, dtype=torch.int32), matched, flagged
 
+
+def transposition_count(a, b, matched, flagged) -> torch.Tensor:
+    """[B] int32 raw transpositions (strsim.rs:220-237): the ranks r where
+    the r-th matched a char differs from the r-th flagged b char, the
+    integers of strsim_tpu/ops/stats.py:transposition_count. Sorting the
+    positions so that the flagged ones come first, in order, compacts each
+    side by rank."""
+    width = a.shape[1]
+    jj = torch.arange(width, device=a.device)
     m = matched.sum(1)
-    # r-th matched a char vs r-th flagged b char: sort positions so the
-    # flagged ones come first, in order
     order_a = torch.sort(torch.where(matched, jj, jj + width), dim=1).indices
     order_b = torch.sort(torch.where(flagged, jj, jj + width), dim=1).indices
     differ = a.gather(1, order_a) != b.gather(1, order_b)
-    t = (differ & (jj[None, :] < m[:, None])).sum(1)
+    return (differ & (jj[None, :] < m[:, None])).sum(1, dtype=torch.int32)
 
-    one_one = (la == 1) & (lb == 1)
-    m = torch.where(one_one, (a[:, 0] == b[:, 0]).long(), m)
+
+def patch_one_one(a, b, len_a, len_b, m, t) -> Tuple[torch.Tensor, torch.Tensor]:
+    """len-1 against len-1 rows compare their chars directly
+    (strsim.rs:197-199): m = (a_0 == b_0), t = 0; m, t as int32."""
+    one_one = (len_a == 1) & (len_b == 1)
+    m = torch.where(one_one, (a[:, 0] == b[:, 0]).to(torch.int32), m)
     t = torch.where(one_one, 0, t)
     return m.to(torch.int32), t.to(torch.int32)

@@ -11,6 +11,7 @@ from typing import Dict
 @dataclasses.dataclass
 class BucketMetrics:
     width: int = 0
+    dtype: str = ""               # tile dtype, "int8" or "int32"
     rows: int = 0
     padded_rows: int = 0          # rows added to round the batch up
     char_lanes: int = 0           # rows * width

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 import strsim_tpu_torch as tst
-from strsim_tpu_torch.ops import (_build, bigram_cuda, dp_fused_cuda, jaro_cuda, lev_jaro_cuda,
-                                  levenshtein_cuda, multiset_cuda, osa_cuda)
+from strsim_tpu_torch.ops import (_build, bigram_cuda, dp_fused_cuda, jaro_cuda, jaro_flags_cuda,
+                                  lev_jaro_cuda, levenshtein_cuda, levenshtein_wavefront_cuda,
+                                  multiset_cuda, osa_cuda)
 from strsim_tpu_torch.ops.oracle import ORACLES
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -52,7 +53,7 @@ CASES = [
     pytest.param(multiset_cuda.multiset_intersection_rank, multiset_cuda.rank_plain,
                  (7, 31, 63), (np.int8, np.int32), id="multiset_rank"),
     pytest.param(multiset_cuda.multiset_intersection_hist, multiset_cuda.hist_plain,
-                 (95, 255, 511), (np.int8,), id="multiset_hist"),
+                 (7, 31, 63, 95, 255, 511), (np.int8,), id="multiset_hist"),
     pytest.param(partial(lev_jaro_cuda.lev_jaro_stats, with_inter=True),
                  partial(lev_jaro_cuda.lev_jaro_plain, with_inter=True),
                  (7, 31, 47, 63, 64), (np.int8, np.int32), id="lev_jaro_fused_inter"),
@@ -78,6 +79,14 @@ CASES = [
                  (7, 31, 33, 63, 95, 255, 511), (np.int8, np.int32), id="osa_scan"),
     pytest.param(bigram_cuda.bigram_stats, bigram_cuda.bigram_plain,
                  (1, 2, 7, 31, 63, 64), (np.int8, np.int32), id="bigram"),
+    pytest.param(jaro_flags_cuda.jaro_flag_scan, jaro_cuda.greedy_scan,
+                 (1, 2, 7, 31, 33, 63, 95, 511, 512), (np.int8, np.int32), id="jaro_flags"),
+    pytest.param(jaro_flags_cuda.jaro_match_stats, jaro_cuda.jaro_plain,
+                 (7, 63, 511), (np.int8, np.int32), id="jaro_flags_m_t"),
+    pytest.param(levenshtein_wavefront_cuda.levenshtein_distance,
+                 levenshtein_wavefront_cuda.wavefront_plain,
+                 (1, 2, 7, 31, 63, 64, 65, 128, 129, 255, 256, 257, 511, 512), (np.int8, np.int32),
+                 id="levenshtein_wavefront"),
 ]
 
 
@@ -91,7 +100,8 @@ def test_kernel_matches_plain(device, kernel, plain, widths, dtypes):
             want = want if isinstance(want, tuple) else (want,)
             assert len(got) == len(want)
             for g, w in zip(got, want):
-                assert g.device == device and g.dtype == torch.int32
+                # [B] int32 stats; K9 also returns its [B, L] bool flag tensors
+                assert g.device == device and g.dtype == (torch.bool if g.dim() == 2 else torch.int32)
                 assert torch.equal(g, w), (width, dtype)
 
 
@@ -140,3 +150,40 @@ def test_extension_pipeline_on_the_card_matches_oracle(device):
         assert tst.compute(m, col_a, col_b, config=cfg).tobytes() == out[m].tobytes(), m
     assert set(_build.launch_counts()) >= {"lev_jaro_fused", "lev_jaro_fused.osa", "lev_jaro_fused.lcs",
                                            "dp_fused", "osa_scan", "bigram", "jaro_scan", "multiset_hist"}
+
+
+def test_forced_pipeline_on_the_card_matches_oracle(device):
+    """levenshtein_impl="pallas", jaro_impl="pallas": K10 and K9 on short
+    mixed-script rows and on long ASCII rows, the plain forms past 512."""
+    rng = np.random.default_rng(2)
+    words = ["phillips", "philips", "смит", "你好世界", "😀a😀", "", "a", "martha", "marhta"]
+    col_a = [words[i] for i in rng.integers(0, len(words), 300)] + [None, "ab" * 300]
+    col_b = [words[i] for i in rng.integers(0, len(words), 300)] + ["x", "ba" * 290]
+    for k in range(20):
+        col_a.append("abcde" * 30 + "x" * k)
+        col_b.append("abdce" * 31)
+    cfg = tst.get_config().replace(device="cuda", host_short_circuit_rows=0, equal_fast_path=False,
+                                   levenshtein_impl="pallas", jaro_impl="pallas")
+    _build.reset_launch_counts()
+    out = tst.compute_many(FIVE, col_a, col_b, config=cfg)
+    for m in FIVE:
+        want = np.array([np.nan if a is None or b is None else ORACLES[m](a, b) for a, b in zip(col_a, col_b)])
+        assert out[m].tobytes() == want.tobytes(), m
+    assert set(_build.launch_counts()) >= {"jaro_flags", "levenshtein_wavefront", "multiset_rank"}
+
+
+def test_forced_multiset_hist_on_the_card_matches_oracle(device):
+    """multiset_impl="pallas_hist": K4 on the narrow ASCII buckets (w7, w15)
+    too, the plain form on a non-ASCII one (w23)."""
+    rng = np.random.default_rng(3)
+    words = ["phillips", "philips", "a", "martha", "marhta", "dixon", "dicksonx"]
+    col_a = [words[i] for i in rng.integers(0, len(words), 300)] + ["жук" * 6] * 20
+    col_b = [words[i] for i in rng.integers(0, len(words), 300)] + ["жкук" * 5] * 20
+    cfg = tst.get_config().replace(device="cuda", host_short_circuit_rows=0,
+                                   multiset_impl="pallas_hist")
+    _build.reset_launch_counts()
+    out = tst.compute_many(("jaccard", "cosine"), col_a, col_b, config=cfg)
+    for m in ("jaccard", "cosine"):
+        want = np.array([ORACLES[m](a, b) for a, b in zip(col_a, col_b)])
+        assert out[m].tobytes() == want.tobytes(), m
+    assert _build.launch_counts().get("multiset_hist", 0) > 0

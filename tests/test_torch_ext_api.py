@@ -174,17 +174,18 @@ def test_extend_rows_and_broadcast():
 
 # --- the stat router against the JAX engine's choices on a TPU ---------------
 
-def _jax_routes(monkeypatch, measures, width, dtype):
+def _jax_routes(monkeypatch, measures, width, dtype, config=None):
     """{stat: route} from strsim_tpu.ops.stats.compute_stats with the kernel
-    choices strsim_tpu.models.pipeline._impls_for makes on a TPU, each kernel
-    replaced by a recorder that names the port's counterpart."""
+    choices strsim_tpu.models.pipeline._impls_for makes on a TPU under
+    `config` (a strsim_tpu config; the default one if None), each kernel and
+    XLA form replaced by a recorder that names the port's counterpart."""
     import jax
     import jax.numpy as jnp
     from strsim_tpu.models import pipeline as jpipe
     from strsim_tpu.ops import (
-        bigram_pallas, dp_fused_pallas, jaro_bitmask, jaro_pallas_scan, lcs,
-        lev_jaro_pallas, levenshtein_myers, levenshtein_pallas_scan, multiset_loop,
-        multiset_pallas, osa_myers, osa_pallas_scan, phonetic)
+        bigram_pallas, dp_fused_pallas, jaro_bitmask, jaro_pallas, jaro_pallas_scan, lcs,
+        lev_jaro_pallas, levenshtein_myers, levenshtein_pallas, levenshtein_pallas_scan,
+        multiset_loop, multiset_pallas, osa_myers, osa_pallas_scan, phonetic)
     from strsim_tpu.ops import stats as jax_stats
 
     routes = {}
@@ -209,6 +210,8 @@ def _jax_routes(monkeypatch, measures, width, dtype):
     # where the JAX engine leaves int32 tiles to its XLA jaro form (its
     # Pallas slot packing has a codepoint contract), the port keeps K2
     jaro_xla = "jaro_scan" if width <= 512 else "plain"
+    # the port's K4, K9 and K10 take widths up to 512, its plain forms beyond
+    up_to_512 = lambda route: route if width <= 512 else "plain"  # noqa: E731
     for module, name, route, names in [
         (lev_jaro_pallas, "fused_stats_pallas", "lev_jaro_fused", fused),
         (dp_fused_pallas, "dp_fused_stats_pallas", "dp_fused", dp),
@@ -217,8 +220,15 @@ def _jax_routes(monkeypatch, measures, width, dtype):
         (jaro_pallas_scan, "jaro_match_stats_pallas_scan", "jaro_scan", fixed("jaro_m", "jaro_t")),
         (jaro_bitmask, "jaro_match_stats_bitmask", jaro_xla, fixed("jaro_m", "jaro_t")),
         (multiset_pallas, "multiset_intersection_pallas", "multiset_rank", fixed("inter")),
-        (multiset_pallas, "multiset_intersection_hist", "multiset_hist", fixed("inter")),
+        (multiset_pallas, "multiset_intersection_hist", up_to_512("multiset_hist"), fixed("inter")),
         (multiset_loop, "multiset_intersection_chunked", "plain", fixed("inter")),
+        (multiset_loop, "multiset_intersection_loop", "plain", fixed("inter")),
+        (jax_stats, "multiset_intersection", "plain", fixed("inter")),
+        (levenshtein_pallas, "levenshtein_distance_pallas", up_to_512("levenshtein_wavefront"),
+         fixed("lev_d")),
+        (jax_stats, "levenshtein_distance", "plain", fixed("lev_d")),
+        (jaro_pallas, "jaro_match_stats_pallas", up_to_512("jaro_flags"), fixed("jaro_m", "jaro_t")),
+        (jax_stats, "jaro_match_stats", jaro_xla, fixed("jaro_m", "jaro_t")),
         (bigram_pallas, "bigram_stats_pallas", "bigram", fixed("inter2", "ham_m", "eq")),
         (multiset_loop, "bigram_intersection_loop", "plain", fixed("inter2")),
         (osa_pallas_scan, "osa_distance_pallas", "osa_scan", fixed("osa_d")),
@@ -228,7 +238,8 @@ def _jax_routes(monkeypatch, measures, width, dtype):
     ]:
         monkeypatch.setattr(module, name, recorder(route, names))
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    impls = jpipe._impls_for(jst.get_config(), width, dtype, max_char=0xFFFF if dtype == np.int32 else 127)
+    impls = jpipe._impls_for(config or jst.get_config(), width, dtype,
+                             max_char=0xFFFF if dtype == np.int32 else 127)
     a = jnp.full((8, width), -1, dtype)
     b = jnp.full((8, width), -2, dtype)
     lens = jnp.zeros((8,), jnp.int32)

@@ -203,7 +203,8 @@ def test_rank_wrapper_rejects_wide_tiles():
 def test_multiset_route(width, dtype, route):
     """K3 through width 64 (any codepoint), K4 on wide 8-bit tiles, the plain
     version for wide int32 and extend buckets, as in the JAX engine's routing."""
-    assert torch_stats.multiset_route(width, dtype) == route
+    auto = torch_stats.resolve_impls(width, dtype)["multiset"]
+    assert torch_stats.multiset_route(width, dtype, auto) == route
 
 
 def test_cpu_calls_neither_build_nor_count():
