@@ -9,8 +9,9 @@ Phases, one line of findings each (any failure exits non-zero):
   2. build: every CUDA kernel from csrc/, one nvcc per source in parallel;
   3. kernels: each kernel against its plain torch version on the card, at the
      main path's shapes (65536-row blocks at each ladder width it serves, int8
-     and int32 tiles, seeded inputs incl. astral codepoints, one set of tiles
-     per width and dtype that every kernel there reads), K5 with its
+     and int32 tiles, seeded inputs incl. astral codepoints and the rows of
+     `lane_rows` and every word-boundary length, one set of tiles per width
+     and dtype that every kernel there reads), K5 with its
      multiset, OSA and LCS outputs on and off, K6 with all three recurrences
      at every width and with {lev, osa}, {osa, lcs}, {lcs} at w31/w63/w255;
      integers must match exactly; both times from CUDA events, beside the
@@ -25,7 +26,9 @@ Phases, one line of findings each (any failure exits non-zero):
      (levenshtein, osa, lcs_seq, indel), and through each of the fourteen
      measure functions, with the launch counts zeroed just before and read
      just after (K1-K8 must all launch, K5 also with its OSA and LCS outputs
-     on); then the forced-implementation path, compute_many over the five
+     on), and for the five and all fourteen each kernel's time per pass from
+     the buckets' rows and phase 3's times (`pass_reckoning`); then the
+     forced-implementation path, compute_many over the five
      with levenshtein_impl="pallas", jaro_impl="pallas" on both workloads
      whole, and every other forced combination (DIFFERENTIAL and
      `single_overrides`, which the tests/test_torch_forced_*.py files share)
@@ -150,8 +153,9 @@ def _words(n):
 def _peq(pattern, steps, words):
     """Operations for the equality words from a per-row table indexed by
     char: one OR per pattern char to build it, one read per word and step.
-    The kernels build the words by char compares instead (la * lb a row);
-    the bound counts the least the function needs."""
+    K1, K2, K6 and K7 do so on int8 tiles; on int32 tiles, and in the other
+    kernels, they compare chars instead. The bound counts the least the
+    function needs."""
     return pattern + words * steps
 
 
@@ -220,6 +224,60 @@ def ptxas_summary(log: str) -> str:
 
 # --- phase 3: kernels against their plain versions ---------------------------
 
+def lane_rows(rng, rows, a, b, la, lb, dtype) -> None:
+    """Overwrite a third of the rows (rows % 12 in 0, 3, 6, 9) of the
+    unpadded [n, width] char arrays a, b and the lengths la, lb with rows
+    that stress the lane-group kernels (one word of 32 chars a lane):
+      0: rows far shorter than their bucket (la <= 8; lb as short, or long);
+      3: chars over the full 0..127 alphabet, codes 0 and 127 in every row
+         (int32 tiles: half of them codepoints up to U+10FFFF);
+      6: all-equal rows of length 32k, k = 1 .. width // 32 in turn, whose
+         addition carries run through every word;
+      9: jaro rows whose matches lie at the window's edge (b is a rotated by
+         bound - 1, bound or bound + 1 places either way over the full
+         alphabet), so windows whose ends cross word boundaries decide them."""
+    width = a.shape[1]
+
+    def chars(shape):
+        c = rng.integers(0, 128, shape)
+        if dtype != np.int8:
+            c = np.where(rng.random(shape) < 0.5, c, rng.integers(0, 0x110000, shape))
+        return c
+
+    kind = rows % 12
+    short = rows[kind == 0]
+    la[short] = rng.integers(1, min(width, 8) + 1, short.size)
+    lb[short] = np.where(rng.random(short.size) < 0.5,
+                         np.clip(la[short] + rng.integers(-2, 3, short.size), 1, width),
+                         rng.integers(0, width + 1, short.size))
+
+    full = rows[kind == 3]
+    a[full] = chars((full.size, width))
+    a[full, 0] = 0
+    a[full, width - 1] = 127
+    b[full] = a[full]
+    b[full, rng.integers(0, width, full.size)] = chars(full.size)
+    b[full, rng.integers(0, width, full.size)] = 127
+    b[full, 0] = 0
+    lb[full] = np.clip(la[full] + rng.integers(-2, 3, full.size), 0, width)
+
+    flat = rows[kind == 6]
+    ks = np.arange(1, width // 32 + 1) * 32 if width >= 32 else np.array([width])
+    a[flat] = b[flat] = 98
+    la[flat] = lb[flat] = ks[np.arange(flat.size) % ks.size]
+
+    edge = rows[kind == 9]
+    length = rng.integers(2, width + 1, edge.size) if width >= 2 else np.ones(edge.size, np.int64)
+    bound = np.maximum(length // 2 - 1, 0)
+    shift = np.clip(bound + rng.integers(-1, 2, edge.size), 0, None)
+    shift = np.where(rng.random(edge.size) < 0.5, shift, -shift)
+    a[edge] = chars((edge.size, width))
+    pos = np.arange(width)[None, :]
+    src = (pos - shift[:, None]) % length[:, None]
+    b[edge] = np.where(pos < length[:, None], np.take_along_axis(a[edge], src, 1), a[edge])
+    la[edge] = lb[edge] = length
+
+
 def make_tiles(rng, n: int, width: int, dtype):
     """A packed [n, 2*width] tile (a | b per row, as the pipeline packs it)
     and [2, n] int32 lengths [la; lb], padded with -1 / -2.
@@ -230,8 +288,11 @@ def make_tiles(rng, n: int, width: int, dtype):
     pairs, equal pairs, empty sides, len-1/len-1 pairs (rows % 11 == 5),
     all-equal rows whose length ends on a word boundary, so that bit 31 is
     the tracked Myers bit and jaro flags fill whole words (rows % 13 == 6),
-    the edge lengths 0, 1, 2, width - 1, width and 31..65 in the first rows,
-    and padded rows (la = lb = 0) at the end, as at the end of a bucket."""
+    and padded rows (la = lb = 0) at the end, as at the end of a bucket.
+    The first rows take the edge lengths 0, 1, 2, width - 1, width and each
+    word boundary 32k and 32k +- 1 up to the width, so the tracked bit lies
+    in every word (every lane of a lane-group kernel). Four kinds of row
+    stress those kernels (`lane_rows`), in place of random rows."""
     if dtype == np.int8:
         alphabet = np.array([97, 98, 99, 100, 101, 32, 0, 126], dtype=np.int64)
     else:
@@ -254,12 +315,15 @@ def make_tiles(rng, n: int, width: int, dtype):
     b[equal], lb[equal] = a[equal], la[equal]
     la[rng.random(n) < 0.02] = 0
     lb[rng.random(n) < 0.02] = 0
+    lane_rows(rng, rows, a, b, la, lb, dtype)
     one = rows % 11 == 5
     la[one] = lb[one] = 1
     top = rows % 13 == 6
     a[top] = b[top] = alphabet[1]
     la[top] = lb[top] = (width // 32) * 32 or width
-    edges = [0, 1, 2, width - 1, width] + [k for k in (31, 32, 33, 63, 64, 65, 256) if k <= width]
+    edges = [0, 1, 2, width - 1, width] + [32 * k + d for k in range(1, width // 32 + 2)
+                                           for d in (-1, 0, 1) if 32 * k + d <= width]
+    edges = edges[:n]
     la[: len(edges)] = edges
     lb[: len(edges)] = edges[::-1]
     pads = max(n // 1024, 1)
@@ -341,10 +405,11 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def check_kernels(device, clock_hz: float, only=None) -> dict:
+def check_kernels(device, clock_hz: float, only=None):
     """Every kernel (or those named in `only`) against its plain version on
-    the same card tensors. Returns {name: {max_abs_err, ms, plain_ms,
-    bound_ms, bound_by}}, the times summed over the name's cases."""
+    the same card tensors. Returns ({name: {max_abs_err, ms, plain_ms,
+    bound_ms, bound_by}}, the times summed over the name's cases; [one
+    record per case])."""
     import torch
 
     rng = np.random.default_rng(SEED)
@@ -359,7 +424,7 @@ def check_kernels(device, clock_hz: float, only=None) -> dict:
             tiles[key] = (codes[:, :width], codes[:, width:], lengths[0], lengths[1]), lens
         return tiles[key]
 
-    summary = {}
+    summary, cases = {}, []
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as log:
         for name, pairs, widths, dtypes in kernel_cases():
@@ -400,6 +465,7 @@ def check_kernels(device, clock_hz: float, only=None) -> dict:
                             record["separate_ms"] = time_ms(lambda: separate_kernels(*args), 5)
                             extra = f", separate K1+K2+K3+prefix {record['separate_ms']:.4f} ms"
                         log.write(json.dumps(record) + "\n")
+                        cases.append(record)
                         entry["ms"] += k_ms
                         entry["plain_ms"] += p_ms
                         entry["bound_ms"] += b_ms
@@ -408,7 +474,7 @@ def check_kernels(device, clock_hz: float, only=None) -> dict:
                               f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}){extra}", flush=True)
     for entry in summary.values():  # what bounds most of the name's cases
         entry["bound_by"] = max(entry["bound_by"], key=entry["bound_by"].get)
-    return summary
+    return summary, cases
 
 
 # --- phase 4: end to end ------------------------------------------------------
@@ -466,7 +532,7 @@ def run_workloads(st, workloads) -> dict:
     from strsim_tpu_torch.models.pipeline import compute_scores
     from strsim_tpu_torch.utils.metrics import RunMetrics
 
-    scores, five_metrics = {}, {}
+    scores, five_metrics, all_metrics = {}, {}, {}
     for label, col_a, col_b in workloads:
         n = len(col_a)
         five, dt = _timed(lambda: st.compute_many(FIVE, col_a, col_b))
@@ -476,7 +542,7 @@ def run_workloads(st, workloads) -> dict:
         _phases(label, "five", rm)
         many, dt = _timed(lambda: st.compute_many(ALL, col_a, col_b))
         print(f"  {label}: compute_many(all 14) {n} pairs in {dt:.3f} s = {n / dt:.0f} pairs/s", flush=True)
-        rm = RunMetrics()
+        rm = all_metrics[label] = RunMetrics()
         compute_scores(col_a, col_b, ALL, metrics=rm)
         _phases(label, "all 14", rm)
         dp, dt = _timed(lambda: st.compute_many(DP_SET, col_a, col_b))
@@ -490,7 +556,52 @@ def run_workloads(st, workloads) -> dict:
                 if res is not None and res.tobytes() != many[m].tobytes():
                     raise AssertionError(f"{label}: {what} differs from compute_many(all 14) on {m}")
         scores[label] = many
-    return scores, five_metrics
+    return scores, five_metrics, all_metrics
+
+
+def _route_flags(kernel: str, routes: dict) -> dict:
+    """The phase-3 flags of `kernel` for the stats `routes` sends it."""
+    on = {f for f, r in routes.items() if r == kernel}
+    if kernel == "lev_jaro_fused":
+        deep = bool(on & {"osa_d", "lcs_len"})
+        return {"with_inter": "inter" in on, "with_osa": deep, "with_lcs": deep}
+    if kernel == "dp_fused":
+        return {"with_lev": "lev_d" in on, "with_osa": "osa_d" in on, "with_lcs": "lcs_len" in on}
+    return {}
+
+
+def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
+    """Print, kernel by kernel, what one pass of `measures` over the buckets
+    of the run that filled RunMetrics `rm` would take on the card by this
+    run's phase-3 times: the sum over its buckets of rows / BLOCK times the
+    kernel's time and bound at the bucket's width and tile dtype, for the
+    outputs the router asks of it there (K6 at its three recurrences where
+    phase 3 did not time that subset). Largest gap to the bound first."""
+    import torch
+
+    from strsim_tpu_torch.ops.stats import stat_routes
+
+    timed = {(r["name"], json.dumps(r["flags"], sort_keys=True), r["width"], r["dtype"]): r
+             for r in cases}
+    per = {}
+    for bm in rm.buckets.values():
+        routes = stat_routes(measures, bm.width, getattr(torch, bm.dtype), impls)
+        for kernel in sorted(set(routes.values()) - {"plain"}):
+            flags = _route_flags(kernel, routes)
+            key = (kernel, json.dumps(flags, sort_keys=True), bm.width, bm.dtype)
+            if key not in timed and kernel == "dp_fused":
+                key = (kernel, json.dumps({"with_lev": True, "with_osa": True, "with_lcs": True},
+                                          sort_keys=True), bm.width, bm.dtype)
+            r = timed[key]
+            t = per.setdefault(kernel, {"ms": 0.0, "bound_ms": 0.0, "rows": 0, "widths": []})
+            t["ms"] += bm.rows / BLOCK * r["ms"]
+            t["bound_ms"] += bm.rows / BLOCK * r["bound_ms"]
+            t["rows"] += bm.rows
+            t["widths"].append(bm.width)
+    for kernel, t in sorted(per.items(), key=lambda kv: kv[1]["bound_ms"] - kv[1]["ms"]):
+        print(f"  per pass, {label} {measures_label}: {kernel} {t['ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms, {t['rows']} rows at w{min(t['widths'])}..w{max(t['widths'])}",
+              flush=True)
 
 
 def single_overrides():
@@ -659,7 +770,7 @@ def main(argv) -> int:
         print(f"  ptxas {name}: {ptxas_summary(log)}")
 
     print("phase 3 kernels vs plain torch on the card:", flush=True)
-    summary = check_kernels(device, clock_hz, only)
+    summary, cases = check_kernels(device, clock_hz, only)
     if only is not None:
         return 0 if set(only) <= set(summary) else 2
 
@@ -672,10 +783,13 @@ def main(argv) -> int:
         ("make_wide_pairs(200_000)", *bench.make_wide_pairs(200_000)),
     ]
     _build.reset_launch_counts()
-    scores, five_metrics = run_workloads(st, workloads)
+    scores, five_metrics, all_metrics = run_workloads(st, workloads)
     launches = require_launched("the main path", [k for k in (*KERNELS, *VARIANTS)
                                                   if k not in FORCED_KERNELS])
     print(f"  launches on the main path: {launches}", flush=True)
+    for label, *_ in workloads:
+        pass_reckoning(label, "five", FIVE, five_metrics[label], cases, st.get_config().impls())
+        pass_reckoning(label, "all 14", ALL, all_metrics[label], cases, st.get_config().impls())
     forced_launches = run_forced(st, workloads, scores, five_metrics)
     launches.update((k, forced_launches[k]) for k in FORCED_KERNELS)
     run_forced_combinations(st, workloads, scores)

@@ -1,16 +1,16 @@
-// Bit-parallel DP steps over W 32-bit words held in registers, shared by the
-// kernels that advance one text char at a time from its equality words
-// (bit i of the vector = pattern_i == text char): the scan kernel of
-// dp_scan.cuh (K1, K6, K7) and lev_jaro_fused.cu (K5). Carries and shift-outs
-// run from word w to word w + 1, as in the plain torch versions
+// Bit-parallel DP steps over W 32-bit words held in the registers of one
+// thread, for a kernel that advances one text char at a time from its
+// equality words (bit i of the vector = pattern_i == text char):
+// lev_jaro_fused.cu (K5), whose jaro step reads the same W words. Carries and
+// shift-outs run from word w to word w + 1, as in the plain torch versions
 // (strsim_tpu_torch/ops/bitwords.py) and the JAX kernels they replace.
 //
 // Each recurrence has a per-word form (`*_word`), which advances word w from
 // its Eq word, taking word w - 1's carries from a carry record and leaving
-// word w's there; a step runs it from w = 0 up with a fresh record for each
-// text char. The scan kernel with one recurrence calls the per-word form as
-// it builds each Eq word; with two or more it holds all W Eq words and calls
-// the whole-vector steps (`*_step`), as K5 does (its jaro step reads them).
+// word w's there, and a whole-vector step (`*_step`) that runs it from
+// w = 0 up with a fresh record for each text char. lanes.cuh has the same
+// recurrences with one word a lane, for the kernels that give a row a group
+// of lanes (the scan kernel of dp_scan.cuh, the jaro scan).
 //
 // The score of the Myers and OSA steps tracks bit `hbit` of word `hword`:
 // the pattern's last position. The callers unroll the word loops (W is a

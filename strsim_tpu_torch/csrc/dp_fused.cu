@@ -1,6 +1,6 @@
 // Fused bit-parallel DP: lev_d, osa_d and lcs_len in any subset of two or
-// more, or lcs_len alone, from one equality-word build per text char, one
-// thread per row pair, widths <= 512.
+// more, or lcs_len alone, from one equality word per text char, a group of
+// lanes per row pair, widths <= 512.
 //
 // Replaces strsim_tpu/ops/dp_fused_pallas.py: _kernel (L <= 63) and
 // _kernel_wide (L <= 512), both behind dp_fused_stats_pallas, which the JAX
@@ -12,15 +12,16 @@
 // alone K7's (osa_scan.cu): the same kernel, launched through their own entry
 // points, so this library leaves those two subsets out.
 //
-// What bounds it on this card: building the Eq words, la * lb char compares a
-// row from L1-resident rows, then O(W) word operations per text char for each
-// recurrence; at W = 16 with all three recurrences the live state is
-// 2W + 4W + W = 112 words plus the W Eq words, all in registers.
+// What bounds it on this card: the word operations of each requested
+// recurrence per word and text char (Myers 17, OSA 21, LCS 4) plus the Eq
+// word; issue rate and latency, not bandwidth.
 //
 // What the design does about it: it launches the scan kernel of dp_scan.cuh,
-// which builds the Eq words once per text char and hands them to each
-// requested recurrence from registers (the separate kernels build them three
-// times); only the requested recurrences' state is live.
+// which reads or builds each Eq word once per text char and hands it to each
+// requested recurrence (the separate kernels would do it three times). One
+// word a lane in a group of lanes per row keeps the live state at 7
+// registers a lane with all three recurrences, where one thread a row held
+// 7 x 16 words; only the requested recurrences' state is live.
 #include "dp_scan.cuh"
 
 // Row r of a starts at a + r * stride_a elements (likewise b). elem_bytes:

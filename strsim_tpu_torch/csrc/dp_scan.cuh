@@ -1,32 +1,34 @@
-// The bit-parallel DP scan kernel, one thread per row pair, widths <= 512:
-// pattern a, text b, for each text char b_j (j < lb) the W words Eq (bit i =
-// a_i == b_j, i < la) are built once and feed the requested recurrences
-// (steps from bitdp.cuh):
+// The bit-parallel DP scan kernel, widths <= 512: pattern a, text b; for each
+// text char b_j (j < lb) the Eq vector (bit i = a_i == b_j, i < la) feeds the
+// requested recurrences:
 //   * Myers, score from la, tracking bit la - 1;
 //   * Hyyro OSA in the D0 form with the carried D0 and Eq words and the
-//     transposition term's inter-word carry;
+//     transposition term's carry between words;
 //   * Allison-Dix LCS from V = all ones; lcs = la - popcount(V & mask(la)).
 // Three libraries launch it, each with its own entry point and launch count:
 // levenshtein_myers.cu (K1, Myers alone), osa_scan.cu (K7, OSA alone) and
 // dp_fused.cu (K6, the other subsets).
 //
-// The kernel is templated on the word count and on the three flags, so only
-// the requested recurrences' state is live and the word loops unroll. Each
-// thread runs its own trip count lb; the pipeline sorts rows by la + lb so a
-// warp's threads finish together. int8 tiles are read as they are, signed, so
-// the pads stay -1 and -2. To bound the build, the word count is rounded up to
-// one of 1, 2, 3, 4, 6, 8, 12, 16 (every ladder width has its own: 7..31 -> 1,
-// 47/63 -> 2, 95 -> 3, 127 -> 4, 191 -> 6, 255 -> 8, 383 -> 12, 511 -> 16); a
-// vector with spare high words gives the same result, since no Eq bit is set
-// there and the scores read bit la - 1.
+// What bounds it on this card: per row and text char, building the Eq vector
+// (la compares if done naively) and about 20 word operations per word and
+// recurrence; rows are at most 2 x 511 chars, so issue rate and latency bound
+// it, not memory bandwidth.
 //
-// How the Eq words meet the steps was measured on an H100 (PERF.md):
-// with one recurrence (K1, K7, LCS alone) each Eq word feeds its step as
-// soon as it is built, so one Eq word is live, not W: building all W first
-// made K1 up to 1.48x slower on int32 tiles from w191 up. With two or three
-// (K6) all W words are built first and each whole-vector step follows:
-// feeding them word by word made K6 1.14..1.17x slower on int8 tiles at
-// w383 and w511, the main path's wide buckets.
+// The design (lanes.cuh): a group of G lanes per row pair, G the word count
+// rounded up to a power of two, lane w holding word w of each state vector,
+// so a lane carries at most 7 state registers (pv/mv, pv/mv/D0'/PM', V). A
+// warp stages its rows of the tile into shared memory once, with coalesced
+// loads; no lane reads device memory inside the step loop. The Eq word of a
+// step costs one shared-memory read on int8 tiles, from a per-row table that
+// each lane fills for its own word (one OR per pattern char); on int32 tiles
+// a lane compares the text char with its own 32 pattern chars in registers.
+// The next step's Eq word is read before the current step runs. The
+// addition carry crosses lanes by carry-lookahead on two ballots, the
+// shift-ins by one shuffle, both over the whole warp: its 32 lanes stay in
+// step, the loop running to the warp's longest row with the finished rows'
+// updates masked off (the pipeline sorts rows by la + lb, so a warp's rows
+// end close together). The kernel is templated on G and on the three flags,
+// so only the requested recurrences' state is live.
 //
 // Each including library is one translation unit, so the unnamed namespace
 // keeps every instantiation private to its library.
@@ -35,108 +37,135 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bitdp.cuh"
+#include "lanes.cuh"
 
 namespace strsim {
 namespace {
 
 constexpr int kScanThreads = 128;
+constexpr int kScanWarps = kScanThreads / kWarp;
 constexpr int kScanMaxWords = 16;
 
-// Eq word w for text char ch: bit i - 32w = (a_i == ch), i < na
-template <typename T>
-__device__ __forceinline__ uint32_t eq_word(const T* ar, T ch, int w, int na) {
-  uint32_t e = 0u;
-  const int i1 = min(w * 32 + 32, na);
-  for (int i = w * 32; i < i1; ++i) e |= (uint32_t)(ar[i] == ch) << (i - w * 32);
-  return e;
+// shared memory of one warp: the int8 equality table, then its staged rows
+template <typename T, int G>
+__host__ __device__ constexpr int scan_warp_bytes(int L) {
+  return (sizeof(T) == 1 ? kTableBytes : 0) + stage_bytes<T>(kWarp / G, L);
 }
 
-template <typename T, int W, bool kLev, bool kOsa, bool kLcs>
-__global__ void dp_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                               long long stride_a, long long stride_b,
-                               const int* __restrict__ len_a,
-                               const int* __restrict__ len_b,
-                               int* __restrict__ lev_out,
-                               int* __restrict__ osa_out,
-                               int* __restrict__ lcs_out, int n, int L) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const T* ar = a + (long long)r * stride_a;
-  const T* br = b + (long long)r * stride_b;
-  const int la = len_a[r];
+// Blocks an SM holds, set by shared memory: 3 with the int8 table, 6 on
+// int32 tiles. Told so, ptxas keeps the registers that leaves it; told only
+// the block size, it spilled to fit blocks that shared memory rules out.
+template <typename T>
+constexpr int kScanBlocksPerSm = sizeof(T) == 1 ? 3 : 6;
+
+template <typename T, int G, bool kLev, bool kOsa, bool kLcs>
+__global__ void __launch_bounds__(kScanThreads, kScanBlocksPerSm<T>)
+    dp_scan_kernel(const T* __restrict__ a, const T* __restrict__ b, long long stride_a,
+                   long long stride_b, const int* __restrict__ len_a,
+                   const int* __restrict__ len_b, int* __restrict__ lev_out,
+                   int* __restrict__ osa_out, int* __restrict__ lcs_out, int n, int L,
+                   bool packed) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kTable = sizeof(T) == 1;
+  constexpr int kRows = kWarp / G;
+  const int warp = threadIdx.x / kWarp, wl = threadIdx.x % kWarp;
+  const long long r0 = ((long long)blockIdx.x * kScanWarps + warp) * kRows;
+  if (r0 >= n) return;
+  const int rows = (int)min((long long)kRows, (long long)n - r0);
+  unsigned char* wsm = smem + (size_t)warp * scan_warp_bytes<T, G>(L);
+  uint32_t* peq = reinterpret_cast<uint32_t*>(wsm);
+  if constexpr (kTable) clear_table(peq, wl);
+  const T* staged = stage_rows<T>(wsm + (kTable ? kTableBytes : 0), a, b, stride_a, stride_b,
+                                  r0, rows, L, packed, wl);
+  __syncwarp();
+
+  // every lane stays to the end: the collectives take the whole warp; a
+  // group past the last row runs no step and writes nothing
+  const LaneGroup<G> g;
+  const int k = wl / G;  // the group's row in the warp
+  const bool live = k < rows;
+  const long long r = r0 + (live ? k : 0);
+  const T* sa = staged + 2LL * L * (live ? k : 0);
+  const T* sb = sa + L;
+  const int la = live ? len_a[r] : 0;
   const int na = min(max(la, 0), L);  // pattern positions that can set Eq bits
-  const int nb = min(len_b[r], L);
+  const int nb = live ? min(max(len_b[r], 0), L) : 0;
   const int m1 = max(la - 1, 0);
   const int hword = m1 >> 5;  // word holding the tracked bit la - 1
-  const unsigned hbit = (unsigned)(m1 & 31);
+  const int writer = hword * 32 < L ? hword : 0;
+  const uint32_t tbit = (g.lane == hword && hword * 32 < L) ? 1u << (m1 & 31) : 0u;
+  const int own = min(max(na - 32 * g.lane, 0), 32);  // pattern chars in this lane's word
+  const T* mine = sa + 32 * g.lane;
+  const int steps = g.warp_max(nb);
 
-  uint32_t pv[W], mv[W], opv[W], omv[W], d0p[W], pmo[W], v[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    pv[w] = opv[w] = v[w] = 0xFFFFFFFFu;
-    mv[w] = omv[w] = d0p[w] = pmo[w] = 0u;
-  }
+  uint32_t pv = 0xFFFFFFFFu, mv = 0u;                        // Myers
+  uint32_t opv = 0xFFFFFFFFu, omv = 0u, d0p = 0u, pmo = 0u;  // OSA
+  uint32_t v = 0xFFFFFFFFu;                                  // LCS
   int lev = la, osa = la;
-
-  for (int j = 0; j < nb; ++j) {
-    const T ch = br[j];
-    if (kLev + kOsa + kLcs >= 2) {  // all W Eq words, then each whole-vector step
-      uint32_t eq[W];
-#pragma unroll
-      for (int w = 0; w < W; ++w) eq[w] = eq_word(ar, ch, w, na);
-      if (kLev) lev += myers_step<W>(eq, pv, mv, hword, hbit);
-      if (kOsa) osa += osa_step<W>(eq, opv, omv, d0p, pmo, hword, hbit);
-      if (kLcs) lcs_step<W>(eq, v);
-    } else {  // each Eq word feeds the one step as soon as it is built
-      MyersCarry lev_c;
-      OsaCarry osa_c;
-      uint32_t lcs_c = 0u;
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        const uint32_t e = eq_word(ar, ch, w, na);
-        if (kLev) myers_word(e, pv[w], mv[w], lev_c, w == hword, hbit);
-        if (kOsa) osa_word(e, opv[w], omv[w], d0p[w], pmo[w], osa_c, w == hword, hbit);
-        if (kLcs) lcs_word(e, v[w], lcs_c);
-      }
-      lev += lev_c.delta;
-      osa += osa_c.delta;
+  const LaneEq<T> eq(peq, wl, mine, own);
+  uint32_t e_next = eq(sb[0]);
+  for (int j = 0; j < steps; ++j) {
+    const uint32_t e = e_next;
+    e_next = eq(sb[max(min(j + 1, nb - 1), 0)]);  // the next step's word, read ahead
+    const bool on = G == 1 || j < nb;               // this group's row not yet done
+    if (kLev) {
+      uint32_t p = pv, m = mv;
+      const int d = myers_lane(g, e, p, m, tbit);
+      if (on) pv = p, mv = m, lev += d;
+    }
+    if (kOsa) {
+      uint32_t p = opv, m = omv, d0 = d0p, pm = pmo;
+      const int d = osa_lane(g, e, p, m, d0, pm, tbit);
+      if (on) opv = p, omv = m, d0p = d0, pmo = pm, osa += d;
+    }
+    if (kLcs) {
+      uint32_t x = v;
+      lcs_lane(g, e, x);
+      if (on) v = x;
     }
   }
-  if (kLev) lev_out[r] = lev;
-  if (kOsa) osa_out[r] = osa;
-  if (kLcs) lcs_out[r] = lcs_length<W>(v, na);
+  int lcs = 0;
+  if (kLcs) lcs = na - g.sum(__popc(v & low_bits(own)));
+  if (live && g.lane == writer) {
+    if (kLev) lev_out[r] = lev;
+    if (kOsa) osa_out[r] = osa;
+    if (kLcs) lcs_out[r] = lcs;
+  }
 }
 
-template <typename T, int W, bool kLev, bool kOsa, bool kLcs>
-cudaError_t launch_dp_scan_w(const T* a, const T* b, long long sa, long long sb,
-                             const int* la, const int* lb, int* lev, int* osa,
-                             int* lcs, int n, int L, cudaStream_t stream) {
-  const dim3 grid((n + kScanThreads - 1) / kScanThreads), block(kScanThreads);
-  dp_scan_kernel<T, W, kLev, kOsa, kLcs><<<grid, block, 0, stream>>>(
-      a, b, sa, sb, la, lb, lev, osa, lcs, n, L);
+template <typename T, int G, bool kLev, bool kOsa, bool kLcs>
+cudaError_t launch_dp_scan_g(const T* a, const T* b, long long sa, long long sb,
+                             const int* la, const int* lb, int* lev, int* osa, int* lcs,
+                             int n, int L, cudaStream_t stream) {
+  const int rows_per_block = kScanWarps * (kWarp / G);
+  const int smem = kScanWarps * scan_warp_bytes<T, G>(L);
+  const auto kernel = dp_scan_kernel<T, G, kLev, kOsa, kLcs>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const bool packed = b == a + L && sa == 2LL * L && sb == 2LL * L;
+  kernel<<<(n + rows_per_block - 1) / rows_per_block, kScanThreads, smem, stream>>>(
+      a, b, sa, sb, la, lb, lev, osa, lcs, n, L, packed);
   return cudaGetLastError();
 }
 
 template <typename T, bool kLev, bool kOsa, bool kLcs>
-cudaError_t launch_dp_scan_t(int words, const void* a, const void* b,
-                             long long sa, long long sb, const int* la,
-                             const int* lb, int* lev, int* osa, int* lcs, int n,
-                             int L, cudaStream_t stream) {
+cudaError_t launch_dp_scan_t(int words, const void* a, const void* b, long long sa,
+                             long long sb, const int* la, const int* lb, int* lev, int* osa,
+                             int* lcs, int n, int L, cudaStream_t stream) {
   const T* ta = static_cast<const T*>(a);
   const T* tb = static_cast<const T*>(b);
-#define STRSIM_W(W)                                                  \
-  return launch_dp_scan_w<T, W, kLev, kOsa, kLcs>(ta, tb, sa, sb, la, lb, \
-                                                  lev, osa, lcs, n, L, stream)
-  if (words <= 1) STRSIM_W(1);
-  if (words <= 2) STRSIM_W(2);
-  if (words <= 3) STRSIM_W(3);
-  if (words <= 4) STRSIM_W(4);
-  if (words <= 6) STRSIM_W(6);
-  if (words <= 8) STRSIM_W(8);
-  if (words <= 12) STRSIM_W(12);
-  STRSIM_W(16);
-#undef STRSIM_W
+#define STRSIM_G(G)                                                                  \
+  return launch_dp_scan_g<T, G, kLev, kOsa, kLcs>(ta, tb, sa, sb, la, lb, lev, osa, \
+                                                  lcs, n, L, stream)
+  switch (group_lanes(words)) {
+    case 1: STRSIM_G(1);
+    case 2: STRSIM_G(2);
+    case 4: STRSIM_G(4);
+    case 8: STRSIM_G(8);
+    default: STRSIM_G(16);
+  }
+#undef STRSIM_G
 }
 
 // The C entry points' common body. Row r of a starts at a + r * stride_a

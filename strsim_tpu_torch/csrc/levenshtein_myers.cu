@@ -1,4 +1,5 @@
-// Myers/Hyyro bit-parallel Levenshtein distance, one thread per row pair.
+// Myers/Hyyro bit-parallel Levenshtein distance, a group of lanes per row
+// pair.
 //
 // Replaces strsim_tpu/ops/levenshtein_pallas_scan.py: _kernel (W = 1),
 // _kernel_multiword (W = 2) and _kernel_wide (W <= 16), all behind
@@ -8,19 +9,20 @@
 //   score starts at len_a, steps j < len_b, the score tracks bit len_a - 1,
 //   the addition carry and the Ph/Mh shift-outs run from the low word up.
 //
-// What bounds it on this card: each step rebuilds the W Eq words from the
-// pattern row, len_a compares of chars read from global memory (L1-resident
-// after the first step), so a row costs O(len_a * len_b) loads and
-// O(W * len_b) word operations. The tiles are small (at most 2 * 511 chars a
-// row), so load latency and instruction throughput bound it, not bandwidth.
+// What bounds it on this card: about 20 word operations per word and text
+// char, plus the Eq word of each step; a row is at most 2 x 511 chars, so
+// issue rate and latency bound it, not bandwidth.
 //
 // What the design does about it: it launches the scan kernel of dp_scan.cuh
-// with Myers alone. pv/mv live in registers (templated on the word count, so
-// the word loops unroll), each thread runs its own trip count len_b (the TPU
-// kernel needed a per-block maximum as a scalar prefetch), and the pipeline
-// sorts rows by len_a + len_b so a warp's threads finish together. int8 tiles
-// are read as they are; the TPU widened them to int32 only because Mosaic
-// refuses int8 blocks.
+// with Myers alone. A group of G lanes (the word count rounded up to a power
+// of two) serves a row, one word a lane, so pv/mv are two registers a lane
+// and the carry and shift-ins cross lanes by ballot and shuffle (lanes.cuh).
+// The rows are staged in shared memory once; on int8 tiles a step's Eq word
+// is one read of a per-row table, on int32 tiles 32 compares against the
+// lane's own pattern chars in registers. Each group runs its own trip count
+// len_b (the TPU kernel needed a per-block maximum as a scalar prefetch).
+// int8 tiles are read as they are; the TPU widened them to int32 only
+// because Mosaic refuses int8 blocks.
 #include "dp_scan.cuh"
 
 // Row r of a starts at a + r * stride_a elements (likewise b), so a and b may

@@ -1,5 +1,5 @@
 // OSA (restricted Damerau-Levenshtein) distance, Hyyro's bit-parallel D0
-// formulation, one thread per row pair, widths <= 512.
+// formulation, a group of lanes per row pair, widths <= 512.
 //
 // Replaces strsim_tpu/ops/osa_pallas_scan.py: _kernel (W = 1),
 // _kernel_multiword (W = 2) and _kernel_wide (W <= 16), all behind
@@ -14,19 +14,19 @@
 //   PV = (HN << 1) | ~(D0 | (HP << 1 | 1)); MV = (HP << 1 | 1) & D0
 // from PV = all ones, MV = 0, score = la. TR enters D0 before HP/HN are
 // derived from it; each of the three left shifts carries bit 31 of word w
-// into word w + 1 (bitdp.cuh: osa_step, shared with K5 and K6).
+// into word w + 1 (lanes.cuh: osa_lane).
 //
-// What bounds it on this card: as the Myers kernel, rebuilding the W Eq words
-// for each text char (la * lb char compares a row, from L1-resident rows),
-// then about 20 word operations per word and step; the live state is
-// 4W words (PV, MV, D0', PM') plus the W Eq words.
+// What bounds it on this card: about 21 word operations per word and text
+// char plus the Eq word; issue rate and latency, not bandwidth.
 //
 // What the design does about it: it launches the scan kernel of dp_scan.cuh
-// with OSA alone, the instantiation K6 would run for osa_d alone: the state
-// lives in registers, templated on the word count so the word loops unroll;
-// each thread runs its own trip count lb (the TPU kernel needed a per-block
-// maximum by scalar prefetch), and the pipeline sorts rows by la + lb so a
-// warp's threads finish together.
+// with OSA alone, the instantiation K6 would run for osa_d alone. A group of
+// lanes serves a row, one word a lane, so PV, MV, D0' and PM' are four
+// registers a lane; TR's, HP's and HN's shift-ins come from the lane below
+// by shuffle and the addition carry by ballot (lanes.cuh). The Eq word is a
+// table read on int8 tiles and the lane's own 32 compares on int32 tiles,
+// from rows staged in shared memory once; each group runs its own trip count
+// lb (the TPU kernel needed a per-block maximum by scalar prefetch).
 #include "dp_scan.cuh"
 
 // Row r of a starts at a + r * stride_a elements (likewise b). elem_bytes:
