@@ -14,7 +14,9 @@ Phases, one line of findings each (any failure exits non-zero):
      and dtype that every kernel there reads), K5 with its
      multiset, OSA and LCS outputs on and off, K6 with all three recurrences
      at every width and with {lev, osa}, {osa, lcs}, {lcs} at w31/w63/w255;
-     integers must match exactly; both times from CUDA events, beside the
+     integers must match exactly; both times from CUDA events, and the
+     kernel's own device time (`device_ms`, from one torch.profiler session
+     over 5 more launches of every case: see `DeviceTimes`), beside the
      least time the card could take (`bound_ms`, from this run's lengths:
      see `bound`); for K5 also the time of the separate kernels it replaces;
      K9 (its m and both flag tensors) and K10 at every width on both dtypes,
@@ -26,8 +28,9 @@ Phases, one line of findings each (any failure exits non-zero):
      (levenshtein, osa, lcs_seq, indel), and through each of the fourteen
      measure functions, with the launch counts zeroed just before and read
      just after (K1-K8 must all launch, K5 also with its OSA and LCS outputs
-     on), and for the five and all fourteen each kernel's time per pass from
-     the buckets' rows and phase 3's times (`pass_reckoning`); then the
+     on), and for the five and all fourteen each kernel's event and device
+     time per pass from the buckets' rows and phase 3's times
+     (`pass_reckoning`); then the
      forced-implementation path, compute_many over the five
      with levenshtein_impl="pallas", jaro_impl="pallas" on both workloads
      whole, and every other forced combination (DIFFERENTIAL and
@@ -49,6 +52,7 @@ Imports neither jax nor strsim_tpu. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import multiprocessing
 import pathlib
@@ -139,7 +143,8 @@ def max_sm_clock_hz() -> float:
 # --- the least time the card could take for a kernel's work ------------------
 
 # Word operations per 32-bit word and step of each recurrence, counted in
-# csrc/bitdp.cuh (the carry, the score's bit reads and loop control left out):
+# its word step (csrc/lanes.cuh: myers_lane, osa_lane, lcs_lane; the carry,
+# the score's bit reads and loop control left out):
 # Myers 17, Hyyro OSA 21, Allison-Dix LCS 4; and the jaro greedy step's 5 per
 # word of its window (window mask, clear the flagged bits, isolate the lowest
 # bit in two, set its flag).
@@ -225,17 +230,26 @@ def ptxas_summary(log: str) -> str:
 # --- phase 3: kernels against their plain versions ---------------------------
 
 def lane_rows(rng, rows, a, b, la, lb, dtype) -> None:
-    """Overwrite a third of the rows (rows % 12 in 0, 3, 6, 9) of the
-    unpadded [n, width] char arrays a, b and the lengths la, lb with rows
-    that stress the lane-group kernels (one word of 32 chars a lane):
+    """Overwrite two thirds of the rows (rows % 12 in 0, 1, 3, 4, 6, 7, 9,
+    10) of the unpadded [n, width] char arrays a, b and the lengths la, lb
+    with rows that stress the lane-group kernels (one word of 32 chars a
+    lane):
       0: rows far shorter than their bucket (la <= 8; lb as short, or long);
+      1: one char repeated, more often in a than in b or the other way round
+         (the multiset counts);
       3: chars over the full 0..127 alphabet, codes 0 and 127 in every row
          (int32 tiles: half of them codepoints up to U+10FFFF);
+      4: one bigram repeated, more often in a than in b or the other way
+         round (the bigram counts);
       6: all-equal rows of length 32k, k = 1 .. width // 32 in turn, whose
          addition carries run through every word;
+      7: a bigram of b at positions 31 and 32 (the last two at widths below
+         33), across bit 31/32, and one of a at 30, 31 or 32, each also found
+         in the other side;
       9: jaro rows whose matches lie at the window's edge (b is a rotated by
          bound - 1, bound or bound + 1 places either way over the full
-         alphabet), so windows whose ends cross word boundaries decide them."""
+         alphabet), so windows whose ends cross word boundaries decide them;
+      10: sides of length 0, 1 and 2 against any length."""
     width = a.shape[1]
 
     def chars(shape):
@@ -261,6 +275,40 @@ def lane_rows(rng, rows, a, b, la, lb, dtype) -> None:
     b[full, 0] = 0
     lb[full] = np.clip(la[full] + rng.integers(-2, 3, full.size), 0, width)
 
+    def counts(which, fill):
+        """Put `fill` (chars per row, [rows, k]) at every k-th slot of a and b
+        with probabilities 0.7 / 0.2 or 0.2 / 0.7: more in one side."""
+        more_a = rng.random(which.size) < 0.5
+        for side, p in ((a, np.where(more_a, 0.7, 0.2)), (b, np.where(more_a, 0.2, 0.7))):
+            side[which] = chars((which.size, width))
+            k = fill.shape[1]
+            for s0 in range(0, width - k + 1, k):
+                put = rng.random(which.size) < p
+                side[which[put], s0:s0 + k] = fill[put]
+        la[which] = rng.integers(1, width + 1, which.size)
+        lb[which] = rng.integers(1, width + 1, which.size)
+
+    same = rows[kind == 1]
+    counts(same, chars((same.size, 1)))
+    pairs = rows[kind == 4]
+    if width >= 2:
+        counts(pairs, chars((pairs.size, 2)))
+
+    cross = rows[kind == 7]
+    if width >= 2:
+        a[cross], b[cross] = chars((cross.size, width)), chars((cross.size, width))
+        la[cross] = rng.integers(min(33, width), width + 1, cross.size)
+        lb[cross] = rng.integers(min(33, width), width + 1, cross.size)
+        # b's at 31 (the last at widths below 33), a's at 30, 31 or 32, each
+        # found at some place in the other side too
+        for side, start, other, n_other in (
+                (b, np.full(cross.size, min(31, width - 2)), a, la),
+                (a, np.minimum(rng.integers(30, 33, cross.size), width - 2), b, lb)):
+            gram = chars((cross.size, 2))
+            side[cross, start], side[cross, start + 1] = gram[:, 0], gram[:, 1]
+            at = rng.integers(0, n_other[cross] - 1)
+            other[cross, at], other[cross, at + 1] = gram[:, 0], gram[:, 1]
+
     flat = rows[kind == 6]
     ks = np.arange(1, width // 32 + 1) * 32 if width >= 32 else np.array([width])
     a[flat] = b[flat] = 98
@@ -277,6 +325,13 @@ def lane_rows(rng, rows, a, b, la, lb, dtype) -> None:
     b[edge] = np.where(pos < length[:, None], np.take_along_axis(a[edge], src, 1), a[edge])
     la[edge] = lb[edge] = length
 
+    tiny = rows[kind == 10]
+    small = rng.integers(0, 3, tiny.size)
+    other = rng.integers(0, width + 1, tiny.size)
+    pick = rng.integers(0, 3, tiny.size)  # which side is short, or both
+    la[tiny] = np.where(pick == 1, other, small)
+    lb[tiny] = np.where(pick == 0, other, np.where(pick == 1, small, rng.integers(0, 3, tiny.size)))
+
 
 def make_tiles(rng, n: int, width: int, dtype):
     """A packed [n, 2*width] tile (a | b per row, as the pipeline packs it)
@@ -291,7 +346,7 @@ def make_tiles(rng, n: int, width: int, dtype):
     and padded rows (la = lb = 0) at the end, as at the end of a bucket.
     The first rows take the edge lengths 0, 1, 2, width - 1, width and each
     word boundary 32k and 32k +- 1 up to the width, so the tracked bit lies
-    in every word (every lane of a lane-group kernel). Four kinds of row
+    in every word (every lane of a lane-group kernel). Eight kinds of row
     stress those kernels (`lane_rows`), in place of random rows."""
     if dtype == np.int8:
         alphabet = np.array([97, 98, 99, 100, 101, 32, 0, 126], dtype=np.int64)
@@ -351,6 +406,66 @@ def time_ms(fn, reps: int, warm_up: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+class DeviceTimes:
+    """One torch.profiler session (CPU and CUDA activity) over the kernels'
+    timed launches of phase 3, each case's launches under a record_function
+    range named by its label; nothing else runs on the card inside it (the
+    plain versions' many small kernels would swamp the trace, and toggling
+    CUDA collection off and on loses the kernels after it on torch 2.11).
+    `per_launch(label)` is then the mean device time of that case's kernels:
+    their own time, without the host's launch pace. The cases run one after
+    another with the card synchronised between them, so the session's
+    kernels in device order are each case's launches in turn; they are
+    matched to the cases by that order, not by time (the device timeline is
+    not aligned with the host's closely enough to tell neighbouring cases
+    apart, nor are the kernels linked to the ranges)."""
+
+    def __init__(self, launches: int):
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        self.prof = torch.profiler.profile(activities=acts)
+        self.launches = launches
+        self.labels = []  # the cases in the order they ran
+        self.times = None  # label -> ms a launch, read at the first per_launch
+
+    def __enter__(self):
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+
+    @contextlib.contextmanager
+    def recording(self, label):
+        import torch
+
+        self.labels.append(label)
+        torch.cuda.synchronize()
+        with torch.profiler.record_function(label):
+            yield
+            torch.cuda.synchronize()
+
+    def per_launch(self, label) -> float:
+        from torch.autograd import DeviceType
+
+        if self.times is None:
+            names = set(self.labels)  # each range also lands on the device timeline
+            kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in self.prof.events()
+                             if e.device_type == DeviceType.CUDA and e.name not in names)
+            n = self.launches
+            if len(kernels) != n * len(self.labels):
+                raise AssertionError(f"{len(kernels)} device kernels in the profile, expected "
+                                     f"{n} for each of {len(self.labels)} cases")
+            self.times = {}
+            for i, case in enumerate(self.labels):
+                group = kernels[n * i: n * (i + 1)]
+                if len({name for *_, name in group}) != 1:
+                    raise AssertionError(f"{case}: its {n} kernels are not one kernel: {group}")
+                self.times[case] = sum(e - s for s, e, _ in group) / 1e3 / n
+        return self.times[label]
+
+
 def kernel_cases():
     """(name, [(flags, kernel, plain), ...], widths, dtypes): every pair is
     checked and timed at every width and dtype; `flags` are the keyword
@@ -401,6 +516,11 @@ def separate_kernels(a, b, la, lb):
             multiset_cuda.multiset_intersection_rank(a, b, la, lb))
 
 
+def case_label(record) -> str:
+    on = "+".join(k[5:] for k, v in record["flags"].items() if v) or "-"
+    return f"{record['name']} {on} w{record['width']} {record['dtype']}"
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -409,7 +529,10 @@ def check_kernels(device, clock_hz: float, only=None):
     """Every kernel (or those named in `only`) against its plain version on
     the same card tensors. Returns ({name: {max_abs_err, ms, plain_ms,
     bound_ms, bound_by}}, the times summed over the name's cases; [one
-    record per case])."""
+    record per case], each also with `device_ms`, the kernel's own device
+    time a launch from torch.profiler, beside `ms` from CUDA events)."""
+    from functools import partial
+
     import torch
 
     rng = np.random.default_rng(SEED)
@@ -424,54 +547,65 @@ def check_kernels(device, clock_hz: float, only=None):
             tiles[key] = (codes[:, :width], codes[:, width:], lengths[0], lengths[1]), lens
         return tiles[key]
 
-    summary, cases = {}, []
+    summary, cases, launches = {}, [], []
+    for name, pairs, widths, dtypes in kernel_cases():
+        if only is not None and name not in only:
+            continue
+        entry = summary.setdefault(name, {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
+                                          "bound_ms": 0.0, "bound_by": {}})
+        for width in widths:
+            for dtype in dtypes:
+                args, lens = tiles_for(width, dtype)
+                for flags, kernel, plain in pairs:
+                    label = case_label({"name": name, "flags": flags, "width": width,
+                                        "dtype": np.dtype(dtype).name})
+                    got = _as_tuple(kernel(*args))
+                    want = _as_tuple(plain(*args))  # also the plain version's warm-up
+                    p_ms = time_ms(lambda: plain(*args), 1, warm_up=False)
+                    if len(got) != len(want):
+                        raise AssertionError(f"{label}: {len(got)} outputs vs {len(want)}")
+                    for g, w in zip(got, want):
+                        if g.shape != w.shape or g.dtype != w.dtype:
+                            raise AssertionError(f"{label}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+                        e = int((g.long() - w.long()).abs().max())
+                        if e:
+                            bad = tuple(torch.nonzero(g != w)[0].tolist())
+                            raise AssertionError(
+                                f"{label}: kernel != plain (max abs err {e}; at {bad}: "
+                                f"la={int(lens[0, bad[0]])} lb={int(lens[1, bad[0]])} "
+                                f"got {int(g[bad])} want {int(w[bad])})")
+                    k_ms = time_ms(lambda: kernel(*args), 5)
+                    out_bytes = sum(g[0].numel() * g.element_size() for g in got)
+                    b_ms, b_by = bound(name, flags, lens, np.dtype(dtype).itemsize, out_bytes,
+                                       clock_hz)
+                    record = {"name": name, "flags": flags, "width": width,
+                              "dtype": np.dtype(dtype).name, "rows": BLOCK, "ms": k_ms,
+                              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "label": label}
+                    if name == "lev_jaro_fused" and flags == {"with_inter": True, "with_osa": False,
+                                                              "with_lcs": False}:
+                        record["separate_ms"] = time_ms(lambda: separate_kernels(*args), 5)
+                    cases.append(record)
+                    launches.append((label, partial(kernel, *args)))
+                    entry["ms"] += k_ms
+                    entry["plain_ms"] += p_ms
+                    entry["bound_ms"] += b_ms
+                    entry["bound_by"][b_by] = entry["bound_by"].get(b_by, 0) + 1
+    with DeviceTimes(5) as device_times:  # each case's kernel again, 5 launches
+        for label, launch in launches:
+            with device_times.recording(label):
+                for _ in range(5):
+                    launch()
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_kernels.jsonl", "w") as log:
-        for name, pairs, widths, dtypes in kernel_cases():
-            if only is not None and name not in only:
-                continue
-            entry = summary.setdefault(name, {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
-                                              "bound_ms": 0.0, "bound_by": {}})
-            for width in widths:
-                for dtype in dtypes:
-                    args, lens = tiles_for(width, dtype)
-                    for flags, kernel, plain in pairs:
-                        label = f"{name} {'+'.join(k[5:] for k, on in flags.items() if on) or '-'} w{width} {np.dtype(dtype).name}"
-                        got = _as_tuple(kernel(*args))
-                        want = _as_tuple(plain(*args))  # also the plain version's warm-up
-                        p_ms = time_ms(lambda: plain(*args), 1, warm_up=False)
-                        if len(got) != len(want):
-                            raise AssertionError(f"{label}: {len(got)} outputs vs {len(want)}")
-                        for g, w in zip(got, want):
-                            if g.shape != w.shape or g.dtype != w.dtype:
-                                raise AssertionError(f"{label}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
-                            e = int((g.long() - w.long()).abs().max())
-                            if e:
-                                bad = tuple(torch.nonzero(g != w)[0].tolist())
-                                raise AssertionError(
-                                    f"{label}: kernel != plain (max abs err {e}; at {bad}: "
-                                    f"la={int(lens[0, bad[0]])} lb={int(lens[1, bad[0]])} "
-                                    f"got {int(g[bad])} want {int(w[bad])})")
-                        k_ms = time_ms(lambda: kernel(*args), 5)
-                        out_bytes = sum(g[0].numel() * g.element_size() for g in got)
-                        b_ms, b_by = bound(name, flags, lens, np.dtype(dtype).itemsize, out_bytes,
-                                           clock_hz)
-                        record = {"name": name, "flags": flags, "width": width,
-                                  "dtype": np.dtype(dtype).name, "rows": BLOCK, "ms": k_ms,
-                                  "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
-                        extra = ""
-                        if name == "lev_jaro_fused" and flags == {"with_inter": True, "with_osa": False,
-                                                                  "with_lcs": False}:
-                            record["separate_ms"] = time_ms(lambda: separate_kernels(*args), 5)
-                            extra = f", separate K1+K2+K3+prefix {record['separate_ms']:.4f} ms"
-                        log.write(json.dumps(record) + "\n")
-                        cases.append(record)
-                        entry["ms"] += k_ms
-                        entry["plain_ms"] += p_ms
-                        entry["bound_ms"] += b_ms
-                        entry["bound_by"][b_by] = entry["bound_by"].get(b_by, 0) + 1
-                        print(f"  {label:42s} rows {BLOCK}: exact, kernel {k_ms:.4f} ms, "
-                              f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}){extra}", flush=True)
+        for record in cases:
+            record["device_ms"] = device_times.per_launch(record.pop("label"))
+            log.write(json.dumps(record) + "\n")
+            extra = (f", separate K1+K2+K3+prefix {record['separate_ms']:.4f} ms"
+                     if "separate_ms" in record else "")
+            print(f"  {case_label(record):42s} rows {BLOCK}: exact, kernel {record['ms']:.4f} ms "
+                  f"(device {record['device_ms']:.4f} ms), plain {record['plain_ms']:.3f} ms, "
+                  f"bound {record['bound_ms']:.4f} ms ({record['bound_by']}){extra}", flush=True)
     for entry in summary.values():  # what bounds most of the name's cases
         entry["bound_by"] = max(entry["bound_by"], key=entry["bound_by"].get)
     return summary, cases
@@ -574,9 +708,10 @@ def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
     """Print, kernel by kernel, what one pass of `measures` over the buckets
     of the run that filled RunMetrics `rm` would take on the card by this
     run's phase-3 times: the sum over its buckets of rows / BLOCK times the
-    kernel's time and bound at the bucket's width and tile dtype, for the
-    outputs the router asks of it there (K6 at its three recurrences where
-    phase 3 did not time that subset). Largest gap to the bound first."""
+    kernel's time (CUDA events, and its own device time), and bound at the
+    bucket's width and tile dtype, for the outputs the router asks of it
+    there (K6 at its three recurrences where phase 3 did not time that
+    subset). Largest gap between device time and bound first."""
     import torch
 
     from strsim_tpu_torch.ops.stats import stat_routes
@@ -593,15 +728,16 @@ def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
                 key = (kernel, json.dumps({"with_lev": True, "with_osa": True, "with_lcs": True},
                                           sort_keys=True), bm.width, bm.dtype)
             r = timed[key]
-            t = per.setdefault(kernel, {"ms": 0.0, "bound_ms": 0.0, "rows": 0, "widths": []})
-            t["ms"] += bm.rows / BLOCK * r["ms"]
-            t["bound_ms"] += bm.rows / BLOCK * r["bound_ms"]
+            t = per.setdefault(kernel, {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0, "rows": 0,
+                                        "widths": []})
+            for k in ("ms", "device_ms", "bound_ms"):
+                t[k] += bm.rows / BLOCK * r[k]
             t["rows"] += bm.rows
             t["widths"].append(bm.width)
-    for kernel, t in sorted(per.items(), key=lambda kv: kv[1]["bound_ms"] - kv[1]["ms"]):
-        print(f"  per pass, {label} {measures_label}: {kernel} {t['ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms, {t['rows']} rows at w{min(t['widths'])}..w{max(t['widths'])}",
-              flush=True)
+    for kernel, t in sorted(per.items(), key=lambda kv: kv[1]["bound_ms"] - kv[1]["device_ms"]):
+        print(f"  per pass, {label} {measures_label}: {kernel} {t['ms']:.4f} ms, device "
+              f"{t['device_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, {t['rows']} rows at "
+              f"w{min(t['widths'])}..w{max(t['widths'])}", flush=True)
 
 
 def single_overrides():

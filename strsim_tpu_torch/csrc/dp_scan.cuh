@@ -46,12 +46,6 @@ constexpr int kScanThreads = 128;
 constexpr int kScanWarps = kScanThreads / kWarp;
 constexpr int kScanMaxWords = 16;
 
-// shared memory of one warp: the int8 equality table, then its staged rows
-template <typename T, int G>
-__host__ __device__ constexpr int scan_warp_bytes(int L) {
-  return (sizeof(T) == 1 ? kTableBytes : 0) + stage_bytes<T>(kWarp / G, L);
-}
-
 // Blocks an SM holds, set by shared memory: 3 with the int8 table, 6 on
 // int32 tiles. Told so, ptxas keeps the registers that leaves it; told only
 // the block size, it spilled to fit blocks that shared memory rules out.
@@ -66,13 +60,13 @@ __global__ void __launch_bounds__(kScanThreads, kScanBlocksPerSm<T>)
                    int* __restrict__ osa_out, int* __restrict__ lcs_out, int n, int L,
                    bool packed) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kTable = sizeof(T) == 1;
+  constexpr bool kTable = lane_table<T>;
   constexpr int kRows = kWarp / G;
   const int warp = threadIdx.x / kWarp, wl = threadIdx.x % kWarp;
   const long long r0 = ((long long)blockIdx.x * kScanWarps + warp) * kRows;
   if (r0 >= n) return;
   const int rows = (int)min((long long)kRows, (long long)n - r0);
-  unsigned char* wsm = smem + (size_t)warp * scan_warp_bytes<T, G>(L);
+  unsigned char* wsm = smem + (size_t)warp * lane_warp_bytes<T, G>(L);
   uint32_t* peq = reinterpret_cast<uint32_t*>(wsm);
   if constexpr (kTable) clear_table(peq, wl);
   const T* staged = stage_rows<T>(wsm + (kTable ? kTableBytes : 0), a, b, stride_a, stride_b,
@@ -138,7 +132,7 @@ cudaError_t launch_dp_scan_g(const T* a, const T* b, long long sa, long long sb,
                              const int* la, const int* lb, int* lev, int* osa, int* lcs,
                              int n, int L, cudaStream_t stream) {
   const int rows_per_block = kScanWarps * (kWarp / G);
-  const int smem = kScanWarps * scan_warp_bytes<T, G>(L);
+  const int smem = kScanWarps * lane_warp_bytes<T, G>(L);
   const auto kernel = dp_scan_kernel<T, G, kLev, kOsa, kLcs>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

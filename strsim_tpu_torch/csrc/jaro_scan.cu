@@ -44,18 +44,13 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kMaxWords = 16;
-constexpr int kScratchBytes = 64 * kWarp * 4;  // 2 x 32G rank slots of every group
 
 // shared memory of one warp: the int8 equality table (reused for the rank
-// slots once the scan is done) or the int32 rank slots, then its staged rows
+// slots once the scan is done) or the int32 rank slots (none at G <= 2),
+// then its staged rows
 template <typename T, int G>
 __host__ __device__ constexpr int warp_bytes(int L) {
-  return (sizeof(T) == 1 ? kTableBytes : kScratchBytes) + stage_bytes<T>(kWarp / G, L);
-}
-
-// ~0 << s, s clamped to [0, 32]
-__device__ __forceinline__ uint32_t ones_from(int s) {
-  return __funnelshift_lc(0u, 0xFFFFFFFFu, (unsigned)max(s, 0));
+  return (lane_table<T> ? kTableBytes : kRankSlotBytes<G>) + stage_bytes<T>(kWarp / G, L);
 }
 
 template <typename T, int G>
@@ -65,7 +60,7 @@ __global__ void __launch_bounds__(kThreads)
                 const int* __restrict__ len_b, int* __restrict__ m_out,
                 int* __restrict__ t_out, int n, int L, bool packed) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kTable = sizeof(T) == 1;
+  constexpr bool kTable = lane_table<T>;
   constexpr int kRows = kWarp / G;
   const int warp = threadIdx.x / kWarp, wl = threadIdx.x % kWarp;
   const long long r0 = ((long long)blockIdx.x * kWarps + warp) * kRows;
@@ -74,7 +69,7 @@ __global__ void __launch_bounds__(kThreads)
   unsigned char* wsm = smem + (size_t)warp * warp_bytes<T, G>(L);
   uint32_t* table_words = reinterpret_cast<uint32_t*>(wsm);
   if constexpr (kTable) clear_table(table_words, wl);
-  const T* staged = stage_rows<T>(wsm + (kTable ? kTableBytes : kScratchBytes), a, b,
+  const T* staged = stage_rows<T>(wsm + (kTable ? kTableBytes : kRankSlotBytes<G>), a, b,
                                   stride_a, stride_b, r0, rows, L, packed, wl);
   __syncwarp();
 
@@ -108,28 +103,14 @@ __global__ void __launch_bounds__(kThreads)
     const int hi = min(i + bound, nb - 1) - base;
     const uint32_t cand = (G == 1 || i < i_end)
                               ? e & ones_from(lo) & ~ones_from(hi + 1) & ~flag : 0u;
-    const unsigned any = g.ballot(cand != 0u);
-    if (any) {
-      if (g.lane == __ffs(any) - 1) flag |= cand & (0u - cand);  // the first match
+    if (take_first(g, cand, flag)) {  // the first match
       if (g.lane == (i >> 5)) mat |= 1u << (i & 31);
       ++m;
     }
   }
 
-  // r-th matched a char against r-th flagged b char: rank slot s of the
-  // group is word (s / G) * 32 + base + s % G of the scratch, a's ranks at
-  // s < 32G, b's from 32G, so that lane k reads its own column below
-  g.sync();  // the table's last reads are done
-  uint32_t* scratch = table_words;
-  const auto slot = [&](int s) { return ((s / G) << 5) + g.base + (s & (G - 1)); };
-  int s = g.exclusive_sum(__popc(mat));
-  for (uint32_t x = mat; x; x &= x - 1u) scratch[slot(s++)] = (uint32_t)(int)sa[base + __ffs(x) - 1];
-  s = 32 * G + g.exclusive_sum(__popc(flag));
-  for (uint32_t x = flag; x; x &= x - 1u) scratch[slot(s++)] = (uint32_t)(int)sb[base + __ffs(x) - 1];
-  g.sync();
-  int t = 0;
-  for (int q = g.lane; q < m; q += G) t += scratch[slot(q)] != scratch[slot(32 * G + q)] ? 1 : 0;
-  t = g.sum(t);
+  g.sync();  // the table's last reads are done: the rank slots overlay it
+  const int t = jaro_transpositions(g, table_words, sa, sb, mat, flag, m);
   if (live && g.lane == 0) {
     m_out[r] = one_one ? (sa[0] == sb[0] ? 1 : 0) : m;
     t_out[r] = t;

@@ -1,6 +1,7 @@
 // A group of G lanes per row pair, for the bit-parallel kernels that run one
 // step per char over a row's 32-bit words: the scan kernel of dp_scan.cuh
-// (K1, K6, K7) and the jaro scan of jaro_scan.cu (K2).
+// (K1, K6, K7), the jaro scan of jaro_scan.cu (K2), the fused lev/jaro kernel
+// of lev_jaro_fused.cu (K5) and the bigram kernel of bigram.cu (K8).
 //
 // G is the row's word count rounded up to a power of two (1, 2, 4, 8, 16),
 // so a warp serves 32 / G rows and lane w of a group owns word w (bits
@@ -10,7 +11,10 @@
 //   * the addition carry, by carry-lookahead on two ballots (generate,
 //     propagate), as ops/bitwords.py:add does on tensors;
 //   * the shift-ins of a left shift, from lane w - 1 by __shfl_up_sync (lane
-//     0 takes the fill);
+//     0 takes the fill), and of a right shift, from lane w + 1 by
+//     __shfl_down_sync;
+//   * the group's first set bit (the jaro flag, a consumed multiset bit), by
+//     one ballot;
 //   * sums over the group (LCS popcounts, transposition counts), by
 //     __shfl_xor_sync.
 // G = 1 is the same code with no traffic between lanes.
@@ -26,8 +30,6 @@
 
 #include <type_traits>
 
-#include "bitdp.cuh"
-
 namespace strsim {
 namespace {
 
@@ -37,6 +39,16 @@ constexpr int kTableBytes = kAscii * kWarp * 4;       // one warp's equality tab
 constexpr int kStageSlack = 16;                       // the alignment shift of a staged span
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// bits [0, x) set, saturating at 0 and 32
+__device__ __forceinline__ uint32_t low_bits(int x) {
+  return x <= 0 ? 0u : (x >= 32 ? 0xFFFFFFFFu : (1u << x) - 1u);
+}
+
+// ~0 << s, s clamped to [0, 32]
+__device__ __forceinline__ uint32_t ones_from(int s) {
+  return __funnelshift_lc(0u, 0xFFFFFFFFu, (unsigned)max(s, 0));
+}
 
 // A group's view of the warp. Every collective takes the whole warp (all 32
 // lanes execute it together, every group at once): a warp whose groups each
@@ -72,6 +84,16 @@ struct LaneGroup {
     }
   }
 
+  // v of lane + 1; the group's top lane gets `fill`
+  __device__ __forceinline__ uint32_t from_above(uint32_t v, uint32_t fill) const {
+    if constexpr (G == 1) {
+      return fill;
+    } else {
+      const uint32_t u = __shfl_down_sync(kFull, v, 1, G);
+      return lane == G - 1 ? fill : u;
+    }
+  }
+
   __device__ __forceinline__ int sum(int v) const {
 #pragma unroll
     for (int d = 1; d < G; d <<= 1) v += __shfl_xor_sync(kFull, v, d, G);
@@ -104,12 +126,15 @@ struct LaneGroup {
 // into word w is 1 when some word k < w generates (its sum overflows) and
 // every word between propagates (its sum is all ones): the carries of the
 // integer sum (gen | prop) + gen, over one bit a word. Never both at once:
-// an overflowing sum of two words is at most 2^33 - 2.
+// an overflowing sum of two words is at most 2^33 - 2. At G = 2 the carry
+// into word 1 is word 0's carry-out, one shuffle.
 template <int G>
 __device__ __forceinline__ uint32_t group_add(const LaneGroup<G>& g, uint32_t x, uint32_t y) {
   const uint32_t s = x + y;
   if constexpr (G == 1) {
     return s;
+  } else if constexpr (G == 2) {  // word 1's carry is word 0's carry-out
+    return s + g.from_below(s < x ? 1u : 0u, 0u);
   } else {
     const unsigned gen = g.ballot(s < x);
     const unsigned prop = g.ballot(s == 0xFFFFFFFFu);
@@ -118,9 +143,20 @@ __device__ __forceinline__ uint32_t group_add(const LaneGroup<G>& g, uint32_t x,
   }
 }
 
+// The group's first set bit of `cand` (its lowest lane with one, that lane's
+// lowest bit) goes into `bits`; true when the group had one. The jaro greedy
+// step flags a b-position with it, the multiset counts consume one.
+template <int G>
+__device__ __forceinline__ bool take_first(const LaneGroup<G>& g, uint32_t cand, uint32_t& bits) {
+  const unsigned any = g.ballot(cand != 0u);
+  if (g.lane == __ffs(any) - 1) bits |= cand & (0u - cand);
+  return any != 0u;
+}
+
 // --- the recurrences, one word a lane ------------------------------------
-// The same steps as bitdp.cuh's per-word forms (myers_word, osa_word,
-// lcs_word), with the carry record replaced by group_add and from_below.
+// Myers/Hyyro, Hyyro's OSA and Allison-Dix's LCS over one 32-bit word a lane
+// (the plain forms: ops/bitwords.py and the recurrences it serves), the
+// addition carry by group_add and the shift-ins by from_below.
 // `tbit` is the tracked bit's mask on the lane that holds the pattern's last
 // position, 0 on the others; the Myers and OSA steps return the score's
 // change there (0 elsewhere).
@@ -205,28 +241,39 @@ struct TableEq {
   }
 };
 
-// By compares with the word's 32 chars, held in registers.
+// By compares with the word's first N chars (N = 8, 16 or 32: as many as the
+// width can give a lane), held in registers.
+template <typename T, int N>
 struct RegisterEq {
-  int32_t c[32];
+  T c[N];
   uint32_t valid;
 
-  __device__ __forceinline__ RegisterEq(uint32_t*, int, const int32_t* s, int count)
+  __device__ __forceinline__ RegisterEq(uint32_t*, int, const T* s, int count)
       : valid(low_bits(count)) {
 #pragma unroll
-    for (int k = 0; k < 32; ++k) c[k] = k < count ? s[k] : 0;
+    for (int k = 0; k < N; ++k) c[k] = k < count ? s[k] : 0;
   }
-  __device__ __forceinline__ uint32_t operator()(int32_t ch) const {
+  __device__ __forceinline__ uint32_t operator()(T ch) const {
     uint32_t e = 0u;
 #pragma unroll
-    for (int k = 0; k < 32; ++k) e |= (uint32_t)(c[k] == ch) << k;
+    for (int k = 0; k < N; ++k) e |= (uint32_t)(c[k] == ch) << k;
     return e & valid;
   }
 };
 
-// The equality words a kernel reads on tiles of T: the table on int8 tiles;
-// on int32 tiles, whose codepoints cannot index a table, compares.
-template <typename T>
-using LaneEq = std::conditional_t<sizeof(T) == 1, TableEq, RegisterEq>;
+// Chars of a lane's word that a width leaves: 8, 16 or 32.
+__host__ __device__ constexpr int lane_chars(int L) { return L <= 8 ? 8 : L <= 16 ? 16 : 32; }
+
+// The equality words a kernel reads on tiles of T whose lanes hold N chars:
+// the table on int8 tiles with whole words; compares on int32 tiles, whose
+// codepoints cannot index a table, and on int8 tiles of at most 16 chars,
+// where a handful of compares costs less than the table's 16 KB of shared
+// memory a warp (it bounds the warps an SM holds).
+template <typename T, int N = 32>
+constexpr bool lane_table = sizeof(T) == 1 && N == 32;
+
+template <typename T, int N = 32>
+using LaneEq = std::conditional_t<lane_table<T, N>, TableEq, RegisterEq<T, N>>;
 
 // --- staging ---------------------------------------------------------------
 
@@ -234,6 +281,13 @@ using LaneEq = std::conditional_t<sizeof(T) == 1, TableEq, RegisterEq>;
 template <typename T>
 __host__ __device__ constexpr int stage_bytes(int rows, int L) {
   return ((rows * 2 * L * (int)sizeof(T) + kStageSlack) + 15) & ~15;
+}
+
+// Bytes of a warp's shared memory for LaneEq<T, N> and the staged rows of
+// 32 / G row pairs of width L: the table, if it reads one, then the rows.
+template <typename T, int G, int N = 32>
+__host__ __device__ constexpr int lane_warp_bytes(int L) {
+  return (lane_table<T, N> ? kTableBytes : 0) + stage_bytes<T>(kWarp / G, L);
 }
 
 // The warp copies its rows [r0, r0 + rows) of a and b into `stage` (16-byte
@@ -273,6 +327,53 @@ __device__ __forceinline__ const T* stage_rows(unsigned char* stage, const T* a,
     }
   }
   return dst;
+}
+
+// --- jaro's transpositions -----------------------------------------------
+
+// Bytes of a warp's rank slots for groups of G lanes: 2 x 32G of every group
+// above G = 2, none below.
+template <int G>
+constexpr int kRankSlotBytes = G > 2 ? 64 * kWarp * 4 : 0;
+
+// t for the group's m jaro matches: the ranks r at which the r-th matched a
+// char (the bits of `mat`, a-positions) differs from the r-th flagged b char
+// (the bits of `flag`). sa and sb are the row's staged chars.
+//   * G <= 2: each lane walks the row's (at most) two words of both sets,
+//     the other lane's by one shuffle, in registers;
+//   * G > 2: each lane's popcounts, scanned over the group, give the ranks;
+//     the lanes write their matched a chars and flagged b chars in rank
+//     order to `scratch` (kRankSlotBytes<G> a warp) and compare them in
+//     parallel. Rank slot s of the group is word (s / G) * 32 + base + s % G
+//     of the scratch, a's ranks at s < 32G, b's from 32G, so that lane k
+//     reads its own column. The caller makes sure no lane of the group still
+//     reads what the scratch overlays.
+template <typename T, int G>
+__device__ __forceinline__ int jaro_transpositions(const LaneGroup<G>& g, uint32_t* scratch,
+                                                   const T* sa, const T* sb, uint32_t mat,
+                                                   uint32_t flag, int m) {
+  if constexpr (G <= 2) {
+    uint64_t ma = mat, fb = flag;
+    if constexpr (G == 2) {
+      const uint64_t om = __shfl_xor_sync(kFull, mat, 1), of = __shfl_xor_sync(kFull, flag, 1);
+      ma = g.lane ? om | ma << 32 : ma | om << 32;
+      fb = g.lane ? of | fb << 32 : fb | of << 32;
+    }
+    int t = 0;
+    for (; fb; fb &= fb - 1u, ma &= ma - 1u) t += sa[__ffsll(ma) - 1] != sb[__ffsll(fb) - 1] ? 1 : 0;
+    return t;
+  } else {
+    const int base = 32 * g.lane;
+    const auto slot = [&](int s) { return ((s / G) << 5) + g.base + (s & (G - 1)); };
+    int s = g.exclusive_sum(__popc(mat));
+    for (uint32_t x = mat; x; x &= x - 1u) scratch[slot(s++)] = (uint32_t)(int)sa[base + __ffs(x) - 1];
+    s = 32 * G + g.exclusive_sum(__popc(flag));
+    for (uint32_t x = flag; x; x &= x - 1u) scratch[slot(s++)] = (uint32_t)(int)sb[base + __ffs(x) - 1];
+    g.sync();
+    int t = 0;
+    for (int q = g.lane; q < m; q += G) t += scratch[slot(q)] != scratch[slot(32 * G + q)] ? 1 : 0;
+    return g.sum(t);
+  }
 }
 
 // G for a width: its word count rounded up to a power of two

@@ -1,12 +1,13 @@
 // A CPU stand-in for the CUDA runtime pieces that the lane-group kernels use
-// (csrc/dp_scan.cuh, csrc/jaro_scan.cu), so that their logic runs where there
-// is no card: tests/test_torch_lane_kernels_cpu.py compiles those sources
-// with g++ against this header, as cuda_runtime.h. One std::thread per CUDA
-// thread, the blocks of a launch in turn; every warp collective is a
-// rendezvous of the lanes its mask names, and a collective that names a lane
-// which has already returned aborts instead of hanging. Only what the kernels
-// call is here; the test rewrites their launch syntax and their dynamic
-// shared memory declaration before compiling.
+// (csrc/dp_scan.cuh, csrc/jaro_scan.cu, csrc/lev_jaro_fused.cu,
+// csrc/bigram.cu), so that their logic runs where there is no card:
+// tests/test_torch_lane_kernels_cpu.py compiles those sources with g++
+// against this header, as cuda_runtime.h. One std::thread per CUDA thread,
+// the blocks of a launch in turn; every warp collective is a rendezvous of
+// the lanes its mask names, and a collective that names a lane which has
+// already returned aborts instead of hanging. Only what the kernels call is
+// here; the test rewrites their launch syntax and their dynamic shared
+// memory declaration before compiling.
 #pragma once
 #include <stdint.h>
 #include <stdio.h>
@@ -121,6 +122,14 @@ T __shfl_up_sync(unsigned mask, T x, unsigned d, int width = 32) {
 }
 
 template <class T>
+T __shfl_down_sync(unsigned mask, T x, unsigned d, int width = 32) {
+  uint64_t v[32];
+  emu_collect(mask, (uint32_t)x, v);
+  const int lane = threadIdx.x & 31, src = lane + (int)d;
+  return src >= (lane & ~(width - 1)) + width ? x : (T)(uint32_t)v[src];
+}
+
+template <class T>
 T __shfl_xor_sync(unsigned mask, T x, int d, int width = 32) {
   uint64_t v[32];
   emu_collect(mask, (uint32_t)x, v);
@@ -144,6 +153,7 @@ inline void __syncwarp(unsigned mask = 0xFFFFFFFFu) {
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline int __ffsll(unsigned long long x) { return x ? __builtin_ctzll(x) + 1 : 0; }
 inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned s) {
   s = s > 32 ? 32 : s;
   return (unsigned)(((((uint64_t)hi) << 32) | lo) << s >> 32);

@@ -2,15 +2,19 @@
 
 K1 (`csrc/levenshtein_myers.cu`), K6 (`csrc/dp_fused.cu`, every subset it
 takes), K7 (`csrc/osa_scan.cu`), which share the scan kernel of
-`csrc/dp_scan.cuh`, and K2 (`csrc/jaro_scan.cu`) are compiled with g++
+`csrc/dp_scan.cuh`, K2 (`csrc/jaro_scan.cu`), K5 (`csrc/lev_jaro_fused.cu`,
+the four output sets `chip_smoke.py` times) and K8 (`csrc/bigram.cu`) are
+compiled with g++
 against `tests/cuda_emulation/cuda_runtime.h`, which runs one thread per CUDA
 thread and each warp collective as a rendezvous of its lanes. Their C entry
 points then take numpy tiles from `chip_smoke.make_tiles` (the lane rows
 included), packed as the pipeline packs them and as separate tiles, and
 their outputs must equal the plain versions', exactly. This holds the
-kernels' lane logic (the carry-lookahead ballots, the shift-ins, the int8
-table with its sign mask for codes below 0, the window masks, the rank slots
-of the transposition count, the staging of packed and strided rows) on a
+kernels' lane logic (the carry-lookahead ballots, the shift-ins from below
+and from above, the int8 table with its sign mask for codes below 0, the
+window masks, the rank slots of the transposition count, the multiset and
+bigram counts by greedy consumption, the staging of packed and strided
+rows) on a
 machine without a card; speed and the compiler for the card are the card's
 tests (`tests/test_torch_cuda.py`, `chip_smoke.py`). Skipped without g++.
 """
@@ -25,14 +29,17 @@ import numpy as np
 import pytest
 import torch
 
-from strsim_tpu_torch.ops import _build, dp_fused_cuda, jaro_cuda, levenshtein_cuda, osa_cuda
+from strsim_tpu_torch.ops import (_build, bigram_cuda, dp_fused_cuda, jaro_cuda, lev_jaro_cuda,
+                                  levenshtein_cuda, osa_cuda)
 from torch_tiles import make_packed_tiles
 
 CSRC = Path(_build.__file__).resolve().parent.parent / "csrc"
 SHIM = Path(__file__).resolve().parent / "cuda_emulation"
-LIBRARIES = ("levenshtein_myers", "dp_fused", "osa_scan", "jaro_scan")
+LIBRARIES = ("levenshtein_myers", "dp_fused", "osa_scan", "jaro_scan", "lev_jaro_fused", "bigram")
 DP_SUBSETS = ((True, True, True), (True, True, False), (False, True, True), (False, False, True),
               (True, False, True))
+# K5's (inter, osa and lcs) output sets, as chip_smoke.kernel_cases times them
+FUSED_FLAGS = ((True, False, False), (False, False, False), (True, True, True), (False, True, True))
 
 
 def _for_the_cpu(source: str) -> str:
@@ -134,3 +141,47 @@ def test_lane_kernels_take_int8_codes_below_zero(emulated, width):
     codes = torch.from_numpy(codes.astype(np.int8))
     _check(emulated, codes[:, :width], codes[:, width:], torch.from_numpy(lens[0].copy()),
            torch.from_numpy(lens[1].copy()))
+
+
+def _check_fused_and_bigram(emulated, a, b, la, lb):
+    n = a.shape[0]
+    for with_inter, with_osa, with_lcs in FUSED_FLAGS:
+        names = lev_jaro_cuda.fields(with_inter, with_osa, with_lcs)
+        outs = {f: torch.empty(n, dtype=torch.int32) for f in names}
+        _launch(emulated["lev_jaro_fused"], "strsim_lev_jaro_fused", a, b, la, lb,
+                [outs.get(f) for f in ("lev_d", "jaro_m", "jaro_t", "prefix", "inter", "osa_d",
+                                       "lcs_len")])
+        want = lev_jaro_cuda.lev_jaro_plain(a, b, la, lb, with_inter, with_osa, with_lcs)
+        for f, w in zip(names, want):
+            assert torch.equal(outs[f], w), (f, with_inter, with_osa, with_lcs)
+    outs = [torch.empty(n, dtype=torch.int32) for _ in range(3)]
+    _launch(emulated["bigram"], "strsim_bigram", a, b, la, lb, outs)
+    for f, g, w in zip(("inter2", "ham_m", "eq"), outs, bigram_cuda.bigram_plain(a, b, la, lb)):
+        assert torch.equal(g, w), f
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "separate"])
+@pytest.mark.parametrize("dtype", [np.int8, np.int32], ids=["int8", "int32"])
+@pytest.mark.parametrize("width", [7, 15, 31, 33, 47, 63, 64])
+def test_fused_and_bigram_kernels_match_plain(emulated, width, dtype, packed):
+    """K5 and K8 at G = 1 (widths <= 32) and G = 2, on 100 rows: a warp
+    short of rows at the end, and at G = 2 a second block."""
+    _check_fused_and_bigram(emulated, *_tiles(width, dtype, packed, 100))
+
+
+@pytest.mark.parametrize("width", [7, 15, 31, 63])
+def test_fused_and_bigram_kernels_take_int8_codes_below_zero(emulated, width):
+    """K5 and K8 on int8 chars below 0 inside the lengths (register
+    compares at w7/w15, the table above), few distinct codes so that chars
+    and bigrams repeat; padded -1 / -2 past the lengths, as the bigram
+    contract needs (no -2 inside them)."""
+    rng = np.random.default_rng(width + 1)
+    n = 40
+    twins = np.array([5, 5 - 128, 127, -1, 0, -128])  # pairs 128 apart share a table row
+    a, b = twins[rng.integers(0, 6, (2, n, width))]
+    la, lb = rng.integers(0, width + 1, (2, n)).astype(np.int32)
+    pos = np.arange(width)[None, :]
+    a[pos >= la[:, None]] = -1
+    b[pos >= lb[:, None]] = -2
+    _check_fused_and_bigram(emulated, *(torch.from_numpy(x.astype(x.dtype if x.ndim == 1 else np.int8))
+                                        for x in (a, b, la, lb)))

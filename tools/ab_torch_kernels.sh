@@ -7,21 +7,22 @@
 #   bash tools/ab_torch_kernels.sh build/parent LABEL [KERNELS]
 #
 # Runs `chip_smoke.py --kernels KERNELS` (default: the lane-group kernels K1,
-# K6, K7 and K2) once on this tree as a check (it stops there if a case
-# fails), then parent, change, change, parent. Writes under chiprun_out/:
+# K6, K7, K2, K5 and K8) once on this tree as a check (it stops there if a
+# case fails), then parent, change, change, parent. Writes under chiprun_out/:
 # LABEL.<run>.log and LABEL.<run>.jsonl (one line per phase-3 case: kernel,
-# plain and bound times), ptxas/LABEL.<library>.log (`nvcc -Xptxas -v` of the
-# four scan sources) and LABEL.cuda.log (tests/test_torch_cuda.py on the card).
+# device, plain and bound times), ptxas/LABEL.<library>.log (`nvcc -Xptxas -v`
+# of the six lane-group sources) and LABEL.cuda.log (tests/test_torch_cuda.py
+# on the card).
 set -u
 cd "$(dirname "$0")/.."
 PARENT=$1
 LABEL=$2
-K=${3:-levenshtein_myers,dp_fused,osa_scan,jaro_scan}
+K=${3:-levenshtein_myers,dp_fused,osa_scan,jaro_scan,lev_jaro_fused,bigram}
 O=chiprun_out
 mkdir -p $O/ptxas
 nvidia-smi --query-gpu=name,power.limit,clocks.max.sm --format=csv,noheader
 python3 -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)'
-for f in levenshtein_myers dp_fused osa_scan jaro_scan; do
+for f in levenshtein_myers dp_fused osa_scan jaro_scan lev_jaro_fused bigram; do
   /usr/local/cuda/bin/nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
     -Xcompiler -fPIC -Xptxas -v -o "${TMPDIR:-/tmp}/$LABEL.$f.so" strsim_tpu_torch/csrc/$f.cu \
     > $O/ptxas/$LABEL.$f.log 2>&1 &
