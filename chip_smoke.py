@@ -28,9 +28,9 @@ Phases, one line of findings each (any failure exits non-zero):
      (levenshtein, osa, lcs_seq, indel), and through each of the fourteen
      measure functions, with the launch counts zeroed just before and read
      just after (K1-K8 must all launch, K5 also with its OSA and LCS outputs
-     on), and for the five and all fourteen each kernel's event and device
-     time per pass from the buckets' rows and phase 3's times
-     (`pass_reckoning`); then the
+     on), and for the five, all fourteen and a jaccard() pass (K3 at
+     w7..w63, K4 above) each kernel's event and device time per pass from
+     the buckets' rows and phase 3's times (`pass_reckoning`); then the
      forced-implementation path, compute_many over the five
      with levenshtein_impl="pallas", jaro_impl="pallas" on both workloads
      whole, and every other forced combination (DIFFERENTIAL and
@@ -660,13 +660,15 @@ def run_workloads(st, workloads) -> dict:
     and a five-measure pass that records where the wall time goes
     (RunMetrics), each of the five measure functions, then the same over all
     fourteen, compute_many over (levenshtein, osa, lcs_seq, indel) and each
-    of the nine extension functions. Every result must equal compute_many
-    over all fourteen. Returns ({label: compute_many(all fourteen) scores},
-    {label: the five-measure pass's RunMetrics})."""
+    of the nine extension functions, and a jaccard pass with its RunMetrics
+    (the single multiset function's buckets, which K3 and K4 serve). Every
+    result must equal compute_many over all fourteen. Returns ({label:
+    compute_many(all fourteen) scores}, {label: RunMetrics} of the five,
+    all-fourteen and jaccard passes)."""
     from strsim_tpu_torch.models.pipeline import compute_scores
     from strsim_tpu_torch.utils.metrics import RunMetrics
 
-    scores, five_metrics, all_metrics = {}, {}, {}
+    scores, five_metrics, all_metrics, jaccard_metrics = {}, {}, {}, {}
     for label, col_a, col_b in workloads:
         n = len(col_a)
         five, dt = _timed(lambda: st.compute_many(FIVE, col_a, col_b))
@@ -689,8 +691,13 @@ def run_workloads(st, workloads) -> dict:
                               (f"compute_many({DP_SET})", dp.get(m))):
                 if res is not None and res.tobytes() != many[m].tobytes():
                     raise AssertionError(f"{label}: {what} differs from compute_many(all 14) on {m}")
+        rm = jaccard_metrics[label] = RunMetrics()
+        res = compute_scores(col_a, col_b, ["jaccard"], metrics=rm)
+        if res["jaccard"][0].tobytes() != many["jaccard"].tobytes():
+            raise AssertionError(f"{label}: the jaccard pass differs from compute_many(all 14)")
+        _phases(label, "jaccard", rm)
         scores[label] = many
-    return scores, five_metrics, all_metrics
+    return scores, five_metrics, all_metrics, jaccard_metrics
 
 
 def _route_flags(kernel: str, routes: dict) -> dict:
@@ -919,13 +926,15 @@ def main(argv) -> int:
         ("make_wide_pairs(200_000)", *bench.make_wide_pairs(200_000)),
     ]
     _build.reset_launch_counts()
-    scores, five_metrics, all_metrics = run_workloads(st, workloads)
+    scores, five_metrics, all_metrics, jaccard_metrics = run_workloads(st, workloads)
     launches = require_launched("the main path", [k for k in (*KERNELS, *VARIANTS)
                                                   if k not in FORCED_KERNELS])
     print(f"  launches on the main path: {launches}", flush=True)
     for label, *_ in workloads:
         pass_reckoning(label, "five", FIVE, five_metrics[label], cases, st.get_config().impls())
         pass_reckoning(label, "all 14", ALL, all_metrics[label], cases, st.get_config().impls())
+        pass_reckoning(label, "jaccard", ("jaccard",), jaccard_metrics[label], cases,
+                       st.get_config().impls())
     forced_launches = run_forced(st, workloads, scores, five_metrics)
     launches.update((k, forced_launches[k]) for k in FORCED_KERNELS)
     run_forced_combinations(st, workloads, scores)

@@ -2,18 +2,30 @@
 
 Two kernels, each with its plain torch version beside it:
 
-* `multiset_intersection_rank` (csrc/multiset.cu: strsim_multiset_rank),
-  widths <= 64, any codepoint: position i < la counts iff its occurrence
-  rank among equal chars of a is below that char's count in b[:lb]. Plain
-  form: `rank_plain`, the counterpart of
+* `multiset_intersection_rank` (csrc/multiset.cu: strsim_multiset_rank, K3,
+  replacing `strsim_tpu/ops/multiset_pallas.py:_kernel`), widths <= 64, any
+  codepoint: position i < la counts iff its occurrence rank among equal
+  chars of a is below that char's count in b[:lb]. Plain form:
+  `rank_plain`, the counterpart of
   `strsim_tpu/ops/multiset_loop.py:multiset_intersection_chunked`; the
   pipeline also uses it on CUDA for wide int32 and extend buckets.
-* `multiset_intersection_hist` (strsim_multiset_hist), 8-bit tiles of any
-  width up to 512: a 128-bin histogram of a[:la] consumed by b[:lb]. Plain
-  form: `hist_plain`.
+* `multiset_intersection_hist` (strsim_multiset_hist, K4, replacing
+  `multiset_pallas.py:_kernel_hist`), 8-bit tiles of any width up to 512:
+  a 128-bin histogram of each side, chars below 0 left out. Plain form:
+  `hist_plain`.
 
-The two forms of each kernel agree on every row; both read the lengths, so
-padded rows (la = lb = 0) give 0.
+On the card both are bound by the bytes of the rows, read once. K3 gives a
+row pair a group of lanes (one 32-bit word of b's positions a lane, as the
+other lane kernels of `csrc/lanes.cuh`) and counts by greedy consumption:
+a_i takes the first free bit of its equality word over b, which equals the
+rank rule. K4 gives a row wider than 47 chars 8 lanes, which read its chars
+in place as 16-byte chunks and count them with shared-memory atomics into
+two 128-bin tables a row (a's and b's), then sum min(a, b) over the bins; a
+narrower row gets one thread, reading rows staged with 16-byte loads
+(`csrc/multiset.cu` says more).
+
+The two forms of each kernel agree on every row; both read the lengths
+(clamped to the width), so padded rows (la = lb = 0) give 0.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 // A CPU stand-in for the CUDA runtime pieces that the lane-group kernels use
 // (csrc/dp_scan.cuh, csrc/jaro_scan.cu, csrc/lev_jaro_fused.cu,
-// csrc/bigram.cu), so that their logic runs where there is no card:
+// csrc/bigram.cu, csrc/multiset.cu), so that their logic runs where there is
+// no card:
 // tests/test_torch_lane_kernels_cpu.py compiles those sources with g++
 // against this header, as cuda_runtime.h. One std::thread per CUDA thread,
 // the blocks of a launch in turn; every warp collective is a rendezvous of
@@ -160,6 +161,9 @@ inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned s) {
 }
 template <class T>
 T __ldg(const T* p) { return *p; }
+
+// a shared-memory atomic: the lanes are threads of one process
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 
 inline unsigned char* emu_smem() { return emu_block->smem; }
 

@@ -3,8 +3,8 @@
 K1 (`csrc/levenshtein_myers.cu`), K6 (`csrc/dp_fused.cu`, every subset it
 takes), K7 (`csrc/osa_scan.cu`), which share the scan kernel of
 `csrc/dp_scan.cuh`, K2 (`csrc/jaro_scan.cu`), K5 (`csrc/lev_jaro_fused.cu`,
-the four output sets `chip_smoke.py` times) and K8 (`csrc/bigram.cu`) are
-compiled with g++
+the four output sets `chip_smoke.py` times), K8 (`csrc/bigram.cu`) and K3/K4
+(`csrc/multiset.cu`) are compiled with g++
 against `tests/cuda_emulation/cuda_runtime.h`, which runs one thread per CUDA
 thread and each warp collective as a rendezvous of its lanes. Their C entry
 points then take numpy tiles from `chip_smoke.make_tiles` (the lane rows
@@ -13,8 +13,8 @@ their outputs must equal the plain versions', exactly. This holds the
 kernels' lane logic (the carry-lookahead ballots, the shift-ins from below
 and from above, the int8 table with its sign mask for codes below 0, the
 window masks, the rank slots of the transposition count, the multiset and
-bigram counts by greedy consumption, the staging of packed and strided
-rows) on a
+bigram counts by greedy consumption, K4's packed histograms with their
+shared-memory atomics, the staging of packed and strided rows) on a
 machine without a card; speed and the compiler for the card are the card's
 tests (`tests/test_torch_cuda.py`, `chip_smoke.py`). Skipped without g++.
 """
@@ -30,12 +30,13 @@ import pytest
 import torch
 
 from strsim_tpu_torch.ops import (_build, bigram_cuda, dp_fused_cuda, jaro_cuda, lev_jaro_cuda,
-                                  levenshtein_cuda, osa_cuda)
+                                  levenshtein_cuda, multiset_cuda, osa_cuda)
 from torch_tiles import make_packed_tiles
 
 CSRC = Path(_build.__file__).resolve().parent.parent / "csrc"
 SHIM = Path(__file__).resolve().parent / "cuda_emulation"
-LIBRARIES = ("levenshtein_myers", "dp_fused", "osa_scan", "jaro_scan", "lev_jaro_fused", "bigram")
+LIBRARIES = ("levenshtein_myers", "dp_fused", "osa_scan", "jaro_scan", "lev_jaro_fused", "bigram",
+             "multiset")
 DP_SUBSETS = ((True, True, True), (True, True, False), (False, True, True), (False, False, True),
               (True, False, True))
 # K5's (inter, osa and lcs) output sets, as chip_smoke.kernel_cases times them
@@ -53,7 +54,7 @@ def _for_the_cpu(source: str) -> str:
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """{library: ctypes library} of the four sources built for the CPU."""
+    """{library: ctypes library} of the LIBRARIES sources built for the CPU."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -81,12 +82,13 @@ def emulated(tmp_path_factory):
     return libs
 
 
-def _launch(lib, fn, a, b, len_a, len_b, outs):
+def _launch(lib, fn, a, b, len_a, len_b, outs, elem_bytes=True):
+    """fn(a, b, strides, lengths, *outs, n, L[, elem_bytes], stream)."""
     n, width = a.shape
     rc = getattr(lib, fn)(a.data_ptr(), b.data_ptr(), a.stride(0), b.stride(0),
                           len_a.data_ptr(), len_b.data_ptr(),
                           *(None if o is None else o.data_ptr() for o in outs),
-                          n, width, a.element_size(), None)
+                          n, width, *((a.element_size(),) if elem_bytes else ()), None)
     assert rc == 0
 
 
@@ -185,3 +187,62 @@ def test_fused_and_bigram_kernels_take_int8_codes_below_zero(emulated, width):
     b[pos >= lb[:, None]] = -2
     _check_fused_and_bigram(emulated, *(torch.from_numpy(x.astype(x.dtype if x.ndim == 1 else np.int8))
                                         for x in (a, b, la, lb)))
+
+
+def _check_multiset(emulated, a, b, la, lb):
+    """K3 (widths <= 64) and K4 (int8) against rank_plain / hist_plain."""
+    n, width = a.shape
+    if width <= multiset_cuda.RANK_MAX_WIDTH:
+        got = torch.empty(n, dtype=torch.int32)
+        _launch(emulated["multiset"], "strsim_multiset_rank", a, b, la, lb, (got,))
+        assert torch.equal(got, multiset_cuda.rank_plain(a, b, la, lb)), "rank"
+    if a.dtype == torch.int8:
+        got = torch.empty(n, dtype=torch.int32)
+        _launch(emulated["multiset"], "strsim_multiset_hist", a, b, la, lb, (got,), elem_bytes=False)
+        assert torch.equal(got, multiset_cuda.hist_plain(a, b, la, lb)), "hist"
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "separate"])
+@pytest.mark.parametrize("dtype", [np.int8, np.int32], ids=["int8", "int32"])
+@pytest.mark.parametrize("width", [7, 15, 31, 33, 47, 63, 64])
+def test_multiset_rank_kernel_matches_plain(emulated, width, dtype, packed):
+    """K3 at G = 1 (widths <= 32) and G = 2 on 100 rows (a warp short of
+    rows; at G = 2 a second block), and K4 on the same int8 tiles."""
+    _check_multiset(emulated, *_tiles(width, dtype, packed, 100))
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "separate"])
+@pytest.mark.parametrize("width", [95, 255, 511])
+def test_multiset_hist_kernel_matches_plain(emulated, width, packed):
+    """K4 at R = 4, 8 and 16 lanes a row (its narrow widths run in
+    test_multiset_rank_kernel_matches_plain) on 149 rows: more than one
+    block, and a last warp short of rows."""
+    _check_multiset(emulated, *_tiles(width, np.int8, packed, 149))
+
+
+@pytest.mark.parametrize("width", [7, 31, 63, 64, 95, 511])
+def test_multiset_kernels_on_edge_rows(emulated, width):
+    """int8 chars below 0 inside the lengths (K3 counts them, K4 does not),
+    few distinct chars so that they repeat, one char put more often in a
+    than in b or the other way round, sides of length 0 and 1, and lengths
+    past the width (both kernels clamp them)."""
+    rng = np.random.default_rng(width + 3)
+    n = 149
+    twins = np.array([5, 5 - 128, 127, -1, 0, -128, -2])
+    a, b = twins[rng.integers(0, twins.size, (2, n, width))]
+    rows = np.arange(n)
+    rep = rows[rows % 4 == 0]  # one char, more often in one side
+    more_a = rng.random(rep.size) < 0.5
+    c = rng.integers(0, 128, rep.size)[:, None]
+    a[rep] = np.where(rng.random((rep.size, width)) < np.where(more_a, 0.8, 0.3)[:, None], c, a[rep])
+    b[rep] = np.where(rng.random((rep.size, width)) < np.where(more_a, 0.3, 0.8)[:, None], c, b[rep])
+    la, lb = rng.integers(0, width + 1, (2, n))
+    la[rows % 5 == 1] = rows[rows % 5 == 1] % 2  # 0 or 1
+    lb[rows % 5 == 2] = rows[rows % 5 == 2] % 2
+    la[rows % 7 == 3] = width + 5
+    lb[rows % 7 == 4] = width + 1
+    pos = np.arange(width)[None, :]
+    a[pos >= la[:, None]] = -1
+    b[pos >= lb[:, None]] = -2
+    _check_multiset(emulated, *(torch.from_numpy(x.astype(np.int8)) for x in (a, b)),
+                    *(torch.from_numpy(x.astype(np.int32)) for x in (la, lb)))
