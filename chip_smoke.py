@@ -5,8 +5,11 @@
     python3 chip_smoke.py --kernels levenshtein_myers,osa_scan   # phases 1-3 for these only
 
 Phases, one line of findings each (any failure exits non-zero):
-  1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
-  2. build: every CUDA kernel from csrc/, one nvcc per source in parallel;
+  1. device: the card's name, power limit and maximum SM clock (nvidia-smi),
+     and where Python.h lies (the native library's str-object routes need it);
+  2. build: every CUDA kernel from csrc/ (K11 csrc/warm.cu among them), one
+     nvcc per source in parallel, and the native host library (g++), each
+     build's time;
   3. kernels: each kernel against its plain torch version on the card, at the
      main path's shapes (65536-row blocks at each ladder width it serves, int8
      and int32 tiles, seeded inputs incl. astral codepoints and the rows of
@@ -18,15 +21,20 @@ Phases, one line of findings each (any failure exits non-zero):
      kernel's own device time (`device_ms`, from one torch.profiler session
      over 5 more launches of every case: see `DeviceTimes`), beside the
      least time the card could take (`bound_ms`, from this run's lengths:
-     see `bound`); for K5 also the time of the separate kernels it replaces;
+     strsim_tpu_torch/ops/roofline.py); for K5 also the time of the separate
+     kernels it replaces;
      K9 (its m and both flag tensors) and K10 at every width on both dtypes,
      K4 at every width on int8 (a forced "pallas_hist" sends it narrow tiles);
+     K11 (x * 2 + 1) on [8, 128] and [65536, 128] int32 over the whole int32
+     range, beside torch.add(one, x, alpha=2) (`library_ms`);
      with --kernels, the run ends here (an A/B of kernels between two trees
      copies this script into each and runs it there);
   4. end to end: bench.py's make_pairs(1_000_000) and make_wide_pairs(200_000)
      through compute_many over the five measures, over all fourteen and over
      (levenshtein, osa, lcs_seq, indel), and through each of the fourteen
-     measure functions, with the launch counts zeroed just before and read
+     measure functions (native encode, pack into pinned memory and native
+     finalize; the host phases and the encode route of each pass printed),
+     with the launch counts zeroed just before and read
      just after (K1-K8 must all launch, K5 also with its OSA and LCS outputs
      on), and for the five, all fourteen and a jaccard() pass (K3 at
      w7..w63, K4 above) each kernel's event and device time per pass from
@@ -44,6 +52,15 @@ Phases, one line of findings each (any failure exits non-zero):
      make_wide_pairs and on the nine extensions for 4K of them (the OSA and
      LCS oracles are O(la * lb) a row), the 1,115 golden cases and the README
      demo table;
+     native: on those rows the native library's scores (native_compute)
+     byte-identical to the same oracle scores, its encode of both workloads
+     equal to the numpy route, and its finalize (native_finalize=True)
+     byte-identical to the numpy finalizers on the kernels' stats, all
+     fourteen measures;
+     bench_torch.py in this process at a reduced size (200,000 pairs, 3 timed
+     passes, 40,000 wide), its launch counts zeroed before and read after
+     (K11 and the kernels of its sections must launch), its JSON line
+     printed;
   5. a {"kernels": [...]} JSON line, the card line again, and last
      {"ok": true, "device": {...}}. Each phase-3 case also goes as a JSON line
      to chiprun_out/chip_smoke_kernels.jsonl.
@@ -57,7 +74,6 @@ import json
 import multiprocessing
 import pathlib
 import re
-import subprocess
 import sys
 import time
 
@@ -99,7 +115,16 @@ KERNELS = {
                    "strsim_tpu/ops/jaro_pallas.py:36"),
     "levenshtein_wavefront": ("strsim_tpu_torch/csrc/levenshtein_wavefront.cu",
                               "strsim_tpu/ops/levenshtein_pallas.py:41"),
+    "warm": ("strsim_tpu_torch/csrc/warm.cu", "bench.py:685"),
 }
+# K11 and the kernels of bench_torch.py's sections (the five measures alone
+# and together on make_pairs, levenshtein, jaro_winkler, jaccard and osa on
+# make_wide_pairs): each must launch on its run
+BENCH_KERNELS = ("warm", "levenshtein_myers", "jaro_scan", "multiset_rank", "multiset_hist",
+                 "lev_jaro_fused", "osa_scan")
+BENCH_ARGS = ("--n-pairs", "200000", "--passes", "3", "--n-wide", "40000")
+BENCH_ONLY = ("warm",)  # launched on bench_torch.py's run, not the main path's
+WARM_SHAPES = ((8, 128), (BLOCK, 128))
 # launch counts the main path must also show: K5 with its OSA / LCS outputs on
 VARIANTS = ("lev_jaro_fused.osa", "lev_jaro_fused.lcs")
 # the forced-implementation path (tests/test_differential.py:50-52) and the
@@ -118,103 +143,8 @@ DIFFERENTIAL = (
     {"levenshtein_impl": "wavefront", "jaro_impl": "scan", "multiset_impl": "table"},
 )
 
-# The card's peaks for the bound: device memory at 3.35 TB/s, and 132 SMs of
-# 64 INT32 lanes at the SM clock nvidia-smi reports as its maximum (H100 SXM).
-HBM_BYTES_PER_S = 3.35e12
-INT32_LANES = 132 * 64
-
-
-def nvidia_smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def card_line() -> str:
-    return nvidia_smi("name,power.limit")
-
-
-def max_sm_clock_hz() -> float:
-    return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-
-
-# --- the least time the card could take for a kernel's work ------------------
-
-# Word operations per 32-bit word and step of each recurrence, counted in
-# its word step (csrc/lanes.cuh: myers_lane, osa_lane, lcs_lane; the carry,
-# the score's bit reads and loop control left out):
-# Myers 17, Hyyro OSA 21, Allison-Dix LCS 4; and the jaro greedy step's 5 per
-# word of its window (window mask, clear the flagged bits, isolate the lowest
-# bit in two, set its flag).
-MYERS_OPS, OSA_OPS, LCS_OPS, JARO_OPS = 17, 21, 4, 5
-
-
-def _words(n):
-    return -(-n // 32)
-
-
-def _peq(pattern, steps, words):
-    """Operations for the equality words from a per-row table indexed by
-    char: one OR per pattern char to build it, one read per word and step.
-    K1, K2, K6 and K7 do so on int8 tiles; on int32 tiles, and in the other
-    kernels, they compare chars instead. The bound counts the least the
-    function needs."""
-    return pattern + words * steps
-
-
-def _jaro_window(la, lb):
-    """(a-positions the greedy scan visits, words of b in each window)."""
-    bound = np.maximum(la, lb) // 2 - 1
-    steps = np.clip(np.minimum(la, lb + bound), 0, None)
-    return steps, _words(np.clip(np.minimum(2 * bound + 1, lb), 0, None))
-
-
-def work_ops(name: str, flags: dict, la, lb) -> float:
-    """Integer operations the function of kernel `name` needs for rows of
-    lengths la, lb (numpy int64 arrays), counted for this data as a floor:
-    equality words from a per-row table (`_peq`), each recurrence over its
-    own row's words (ceil(pattern length / 32)) and steps, multisets by
-    histogram (one increment per char of one side, one test-and-decrement
-    per char of the other)."""
-    wa, wb = _words(la), _words(lb)
-    # K10 computes K1's function, K9 the scan of K2's (its flags are bytes)
-    name = {"levenshtein_wavefront": "levenshtein_myers", "jaro_flags": "jaro_scan"}.get(name, name)
-    if name in ("levenshtein_myers", "osa_scan", "dp_fused"):  # pattern a, text b
-        on = {"levenshtein_myers": {"with_lev": True}, "osa_scan": {"with_osa": True}}.get(name, flags)
-        per_word = (MYERS_OPS * on.get("with_lev", False) + OSA_OPS * on.get("with_osa", False)
-                    + LCS_OPS * on.get("with_lcs", False))
-        ops = _peq(la, lb, wa) + per_word * wa * lb
-    elif name == "jaro_scan":  # b's equality words, a-position by a-position
-        steps, win = _jaro_window(la, lb)
-        ops = _peq(lb, steps, win) + JARO_OPS * win * steps
-    elif name in ("multiset_rank", "multiset_hist"):
-        ops = 2 * (la + lb)
-    elif name == "lev_jaro_fused":  # pattern b, text a: one lookup feeds every step
-        steps, win = _jaro_window(la, lb)
-        per_word = (MYERS_OPS + OSA_OPS * flags.get("with_osa", False)
-                    + LCS_OPS * flags.get("with_lcs", False))
-        ops = (_peq(lb, la, wb) + per_word * wb * la + JARO_OPS * win * steps
-               + np.minimum(np.minimum(la, lb), 4))  # the capped prefix
-        if flags.get("with_inter", False):
-            ops = ops + 2 * (la + lb)
-    elif name == "bigram":  # bigram histograms, then ham_m over the shared positions
-        ops = 2 * (np.maximum(la - 1, 0) + np.maximum(lb - 1, 0)) + np.minimum(la, lb)
-    else:
-        raise KeyError(name)
-    return float(np.sum(ops))
-
-
-def bound(name: str, flags: dict, lens, elem_bytes: int, out_bytes: int, clock_hz: float):
-    """(ms, "bytes" or "operations"): the larger of the bytes the function
-    must move (each row's la + lb chars and two lengths read once, its
-    `out_bytes` of outputs written once) over the memory rate, and its
-    integer operations (`work_ops`) over the INT32 peak."""
-    la, lb = lens[0].astype(np.int64), lens[1].astype(np.int64)
-    t_bytes = float(np.sum((la + lb) * elem_bytes + 8 + out_bytes)) / HBM_BYTES_PER_S
-    t_ops = work_ops(name, flags, la, lb) / (INT32_LANES * clock_hz)
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+# The card's peaks and each kernel's bound: strsim_tpu_torch/ops/roofline.py
+# (`bound`, `work_ops`, `card_line`, `max_sm_clock_hz`).
 
 
 def ptxas_summary(log: str) -> str:
@@ -505,6 +435,46 @@ def kernel_cases():
     ]
 
 
+def check_warm(device, clock_hz: float, rng) -> dict:
+    """K11 against warm_plain, exactly, on [8, 128] and [65536, 128] int32
+    drawn over the whole int32 range (x * 2 + 1 wraps), timed beside the
+    PyTorch call that computes the same function, torch.add(one, x,
+    alpha=2) with `one` allocated beforehand. Returns {"summary": the
+    kernel's summed entry, "cases": [(record, launch)]}."""
+    from functools import partial
+
+    import torch
+
+    from strsim_tpu_torch.ops.roofline import warm_bound
+    from strsim_tpu_torch.ops.warm_cuda import warm, warm_plain
+
+    entry = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
+             "library_ms": 0.0}
+    cases = []
+    for rows, width in WARM_SHAPES:
+        x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (rows, width)).astype(np.int32)).to(device)
+        one = torch.ones_like(x)
+        got, want = warm(x), warm_plain(x)
+        p_ms = time_ms(lambda: warm_plain(x), 1, warm_up=False)
+        if not torch.equal(got, want):
+            raise AssertionError(f"warm {rows}x{width}: kernel != plain at "
+                                 f"{tuple(torch.nonzero(got != want)[0].tolist())}")
+        if not torch.equal(torch.add(one, x, alpha=2), want):
+            raise AssertionError("torch.add(one, x, alpha=2) differs from x * 2 + 1")
+        k_ms = time_ms(lambda: warm(x), 5)
+        lib_ms = time_ms(lambda: torch.add(one, x, alpha=2), 5)
+        b_ms, b_by = warm_bound(x.numel(), clock_hz)
+        record = {"name": "warm", "flags": {}, "width": width, "dtype": "int32", "rows": rows,
+                  "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": lib_ms}
+        record["label"] = case_label(record)
+        cases.append((record, partial(warm, x)))
+        for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms), ("library_ms", lib_ms)):
+            entry[k] += v
+        entry["bound_by"][b_by] = entry["bound_by"].get(b_by, 0) + 1
+    return {"summary": entry, "cases": cases}
+
+
 def separate_kernels(a, b, la, lb):
     """What the fused kernel replaces: K1, K2, K3 and the plain prefix."""
     from strsim_tpu_torch.ops import jaro_cuda, levenshtein_cuda, multiset_cuda
@@ -518,7 +488,8 @@ def separate_kernels(a, b, la, lb):
 
 def case_label(record) -> str:
     on = "+".join(k[5:] for k, v in record["flags"].items() if v) or "-"
-    return f"{record['name']} {on} w{record['width']} {record['dtype']}"
+    rows = "" if record.get("rows", BLOCK) == BLOCK else f" x{record['rows']}"
+    return f"{record['name']} {on} w{record['width']} {record['dtype']}{rows}"
 
 
 def _as_tuple(x):
@@ -534,6 +505,8 @@ def check_kernels(device, clock_hz: float, only=None):
     from functools import partial
 
     import torch
+
+    from strsim_tpu_torch.ops.roofline import bound
 
     rng = np.random.default_rng(SEED)
     tiles = {}  # (width, dtype) -> (card tensors, lengths): one set for every kernel
@@ -591,6 +564,12 @@ def check_kernels(device, clock_hz: float, only=None):
                     entry["plain_ms"] += p_ms
                     entry["bound_ms"] += b_ms
                     entry["bound_by"][b_by] = entry["bound_by"].get(b_by, 0) + 1
+    if only is None or "warm" in only:
+        warm_cases = check_warm(device, clock_hz, rng)
+        summary["warm"] = warm_cases.pop("summary")
+        for record, launch in warm_cases["cases"]:
+            cases.append(record)
+            launches.append((record["label"], launch))
     with DeviceTimes(5) as device_times:  # each case's kernel again, 5 launches
         for label, launch in launches:
             with device_times.recording(label):
@@ -603,7 +582,9 @@ def check_kernels(device, clock_hz: float, only=None):
             log.write(json.dumps(record) + "\n")
             extra = (f", separate K1+K2+K3+prefix {record['separate_ms']:.4f} ms"
                      if "separate_ms" in record else "")
-            print(f"  {case_label(record):42s} rows {BLOCK}: exact, kernel {record['ms']:.4f} ms "
+            if "library_ms" in record:
+                extra += f", library (torch.add) {record['library_ms']:.4f} ms"
+            print(f"  {case_label(record):42s} rows {record['rows']}: exact, kernel {record['ms']:.4f} ms "
                   f"(device {record['device_ms']:.4f} ms), plain {record['plain_ms']:.3f} ms, "
                   f"bound {record['bound_ms']:.4f} ms ({record['bound_by']}){extra}", flush=True)
     for entry in summary.values():  # what bounds most of the name's cases
@@ -625,7 +606,10 @@ def _oracle_scores(task):
     return out
 
 
-def oracle_check(label, col_a, col_b, got: dict, measures, n_rows: int, pool) -> None:
+def oracle_check(label, col_a, col_b, got: dict, measures, n_rows: int, pool):
+    """The rows `got` (scores of the whole columns) holds byte-identical to
+    the oracle's on `n_rows` random rows; returns (rows, measures, oracle
+    scores [rows, measures])."""
     rng = np.random.default_rng(SEED + n_rows)
     rows = np.sort(rng.choice(len(col_a), size=min(n_rows, len(col_a)), replace=False))
     pairs = [(col_a[i], col_b[i]) for i in rows]
@@ -638,6 +622,57 @@ def oracle_check(label, col_a, col_b, got: dict, measures, n_rows: int, pool) ->
                                  f"want {want[bad, k]!r}")
     print(f"  {label}: {rows.size} rows byte-identical to the oracle on {len(measures)} measures",
           flush=True)
+    return rows, measures, want
+
+
+def check_native(st, workloads, oracle_sets) -> None:
+    """The native host layer on the card's host: its encode of each whole
+    workload equal to the numpy route (codes, lengths, validity; int8 tiles
+    exactly when every char is ASCII); its scalar kernels (native_compute,
+    every core) byte-identical to the oracle on the rows and measures of
+    `oracle_sets` ({label: [(rows, measures, oracle scores)]}); and its
+    finalize byte-identical to the numpy finalizers on the kernels' stats
+    (compute_scores with native_finalize on and off, all fourteen, on the
+    oracle rows' count of leading rows)."""
+    from strsim_tpu_torch.models.pipeline import compute_scores
+    from strsim_tpu_torch.native import native_compute
+    from strsim_tpu_torch.utils import encode as enc
+
+    cfg = st.get_config()
+    for label, col_a, col_b in workloads:
+        (a, b, route), t_native = _timed(lambda: enc.encode_pair_with_route(col_a, col_b))
+        (numpy_a, numpy_b), t_numpy = _timed(lambda: enc.encode_pair_numpy(col_a, col_b))
+        for side, want in ((a, numpy_a), (b, numpy_b)):
+            ascii_only = int(want.codes.max(initial=0)) < 128
+            if ((side.codes.dtype == np.int8) != ascii_only
+                    or not np.array_equal(side.codes.astype(np.int32), want.codes)
+                    or not np.array_equal(side.lengths, want.lengths)
+                    or not np.array_equal(side.validity, want.validity)):
+                raise AssertionError(f"{label}: the native encode differs from the numpy route")
+        print(f"  native {label}: encode ({route}, {a.codes.dtype}) {t_native:.3f} s equal to the "
+              f"numpy route ({t_numpy:.3f} s)", flush=True)
+        most = 0
+        for rows, measures, want in oracle_sets[label]:
+            valid = a.validity[rows] & b.validity[rows]
+            for k, m in enumerate(measures):
+                got = native_compute(m, a.codes[rows], a.lengths[rows], b.codes[rows],
+                                     b.lengths[rows], valid, threads=0)
+                if got.tobytes() != want[:, k].tobytes():
+                    bad = int(np.nonzero(got != want[:, k])[0][0])
+                    raise AssertionError(f"native {label} {m}: row {rows[bad]} got {got[bad]!r} "
+                                         f"want {want[bad, k]!r}")
+            most = max(most, rows.size)
+            print(f"  native {label}: native_compute on {rows.size} rows byte-identical to the "
+                  f"oracle on {len(measures)} measures", flush=True)
+        first = slice(0, most)
+        on = compute_scores(col_a[first], col_b[first], ALL, config=cfg)
+        off = compute_scores(col_a[first], col_b[first], ALL, config=cfg.replace(native_finalize=False))
+        for m in ALL:
+            if on[m][0].tobytes() != off[m][0].tobytes():
+                raise AssertionError(f"native {label} {m}: native finalize differs from numpy")
+        print(f"  native {label}: finalize_scatter byte-identical to the numpy finalizers on "
+              f"{most} rows, all fourteen measures", flush=True)
+
 
 
 def _timed(fn):
@@ -647,7 +682,7 @@ def _timed(fn):
 
 
 def _phases(label, measures_label, rm) -> None:
-    print(f"  {label}: {measures_label} wall s encode {rm.encode_wall_s:.3f}, classify "
+    print(f"  {label}: {measures_label} wall s encode ({rm.encode_route}) {rm.encode_wall_s:.3f}, classify "
           f"{rm.classify_wall_s:.3f}, buckets (sort, pack, upload, kernels, download) "
           f"{rm.device_wall_s:.3f}, finalize {rm.finalize_wall_s:.3f}, total "
           f"{rm.total_wall_s:.3f}; rows null {rm.null_rows}, host fast path "
@@ -700,17 +735,6 @@ def run_workloads(st, workloads) -> dict:
     return scores, five_metrics, all_metrics, jaccard_metrics
 
 
-def _route_flags(kernel: str, routes: dict) -> dict:
-    """The phase-3 flags of `kernel` for the stats `routes` sends it."""
-    on = {f for f, r in routes.items() if r == kernel}
-    if kernel == "lev_jaro_fused":
-        deep = bool(on & {"osa_d", "lcs_len"})
-        return {"with_inter": "inter" in on, "with_osa": deep, "with_lcs": deep}
-    if kernel == "dp_fused":
-        return {"with_lev": "lev_d" in on, "with_osa": "osa_d" in on, "with_lcs": "lcs_len" in on}
-    return {}
-
-
 def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
     """Print, kernel by kernel, what one pass of `measures` over the buckets
     of the run that filled RunMetrics `rm` would take on the card by this
@@ -721,6 +745,7 @@ def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
     subset). Largest gap between device time and bound first."""
     import torch
 
+    from strsim_tpu_torch.ops.roofline import route_flags
     from strsim_tpu_torch.ops.stats import stat_routes
 
     timed = {(r["name"], json.dumps(r["flags"], sort_keys=True), r["width"], r["dtype"]): r
@@ -729,7 +754,7 @@ def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
     for bm in rm.buckets.values():
         routes = stat_routes(measures, bm.width, getattr(torch, bm.dtype), impls)
         for kernel in sorted(set(routes.values()) - {"plain"}):
-            flags = _route_flags(kernel, routes)
+            flags = route_flags(kernel, routes)
             key = (kernel, json.dumps(flags, sort_keys=True), bm.width, bm.dtype)
             if key not in timed and kernel == "dp_fused":
                 key = (kernel, json.dumps({"with_lev": True, "with_osa": True, "with_lcs": True},
@@ -895,7 +920,9 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import strsim_tpu_torch as st
+    from strsim_tpu_torch.native import build as native_build
     from strsim_tpu_torch.ops import _build
+    from strsim_tpu_torch.ops.roofline import card_line, max_sm_clock_hz
 
     t_start = time.perf_counter()
     card = card_line()
@@ -903,14 +930,20 @@ def main(argv) -> int:
     device = torch.device("cuda", 0)
     print(f"phase 1 device: {card}, max SM clock {clock_hz / 1e6:.0f} MHz | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | {torch.cuda.get_device_name(0)} "
-          f"x{torch.cuda.device_count()}", flush=True)
+          f"x{torch.cuda.device_count()} | Python.h in {native_build.python_include()}", flush=True)
 
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"phase 2 build: {len(_build.LIBRARIES)} libraries ready in "
-          f"{time.perf_counter() - t0:.1f} s (built here: {sorted(built)})", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (built here: "
+          f"{', '.join(f'{k} {v[0]:.1f} s' for k, v in sorted(built.items()))})", flush=True)
     for name, (_, log) in sorted(built.items()):
         print(f"  ptxas {name}: {ptxas_summary(log)}")
+    t0 = time.perf_counter()
+    native_build.get_lib()
+    print(f"  native host library {native_build.target().name} ready in "
+          f"{time.perf_counter() - t0:.1f} s (str-object routes: "
+          f"{native_build.has_object_routes()})", flush=True)
 
     print("phase 3 kernels vs plain torch on the card:", flush=True)
     summary, cases = check_kernels(device, clock_hz, only)
@@ -928,7 +961,7 @@ def main(argv) -> int:
     _build.reset_launch_counts()
     scores, five_metrics, all_metrics, jaccard_metrics = run_workloads(st, workloads)
     launches = require_launched("the main path", [k for k in (*KERNELS, *VARIANTS)
-                                                  if k not in FORCED_KERNELS])
+                                                  if k not in (*FORCED_KERNELS, *BENCH_ONLY)])
     print(f"  launches on the main path: {launches}", flush=True)
     for label, *_ in workloads:
         pass_reckoning(label, "five", FIVE, five_metrics[label], cases, st.get_config().impls())
@@ -949,15 +982,34 @@ def main(argv) -> int:
     ctx = multiprocessing.get_context("spawn")
     (narrow_label, *narrow), (wide_label, *wide) = workloads
     with ctx.Pool(8) as pool:
-        oracle_check(narrow_label, *narrow, scores[narrow_label], ALL, ORACLE_ROWS, pool)
-        oracle_check(wide_label, *wide, scores[wide_label], FIVE, ORACLE_ROWS, pool)
-        oracle_check(wide_label, *wide, scores[wide_label], EXT, ORACLE_ROWS_WIDE_EXT, pool)
+        oracle_sets = {
+            narrow_label: [oracle_check(narrow_label, *narrow, scores[narrow_label], ALL,
+                                        ORACLE_ROWS, pool)],
+            wide_label: [oracle_check(wide_label, *wide, scores[wide_label], FIVE, ORACLE_ROWS, pool),
+                         oracle_check(wide_label, *wide, scores[wide_label], EXT,
+                                      ORACLE_ROWS_WIDE_EXT, pool)],
+        }
     check_golden_and_demo(st)
+    check_native(st, workloads, oracle_sets)
+    del workloads, scores
+
+    print(f"  bench_torch.py {' '.join(BENCH_ARGS)}:", flush=True)
+    import bench_torch
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = bench_torch.main([*BENCH_ARGS, "--details", str(OUT_DIR / "bench_torch_smoke.json")])
+    if rc != 0:
+        raise AssertionError(f"bench_torch.py exited {rc}")
+    bench_launches = require_launched("bench_torch.py", BENCH_KERNELS)
+    launches["warm"] = bench_launches["warm"]
+    print(f"  bench_torch.py done in {time.perf_counter() - t0:.1f} s; its launches: "
+          f"{bench_launches}", flush=True)
 
     print(f"phase 5 done in {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], **summary[name], "library_ms": None}
+         "launches": launches[name], "library_ms": None, **summary[name]}
         for name, (src, tpu) in KERNELS.items()
     ]
     kernels[list(KERNELS).index("lev_jaro_fused")].update(

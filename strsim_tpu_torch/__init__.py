@@ -7,11 +7,16 @@ Jaro-Winkler, Jaccard, Sorensen-Dice) and `strsim_tpu`'s nine extensions
 Soundex) over paired string columns, with f64 scores bit-for-float identical
 to the reference and to `strsim_tpu`:
 
-  strings -> UCS4 codepoint tiles (utils/encode.py)
-          -> length buckets, padded [B, L] int8/int32 batches (models/pipeline.py)
+  strings -> codepoint tiles, int8 when ASCII (utils/encode.py, native/)
+          -> length buckets, padded [B, L] int8/int32 batches, packed into
+             pinned memory and uploaded (models/pipeline.py, native/)
           -> integer stats on the device (ops/stats.py: CUDA kernels in csrc/,
              their plain torch versions on CPU tensors)
-          -> exact f64 finalize on the host (ops/finalize.py).
+          -> exact f64 finalize on the host (native/, ops/finalize.py).
+
+The native host layer (native/: a C++ library built with g++ at first use)
+encodes, packs, finalizes, scores the host rows and gives bench_torch.py its
+single-core baseline.
 
 The default config runs on "cuda" and raises without a GPU; pass
 StrsimConfig(device="cpu") to run the plain torch versions. This package

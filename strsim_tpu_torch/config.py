@@ -38,7 +38,7 @@ class StrsimConfig:
     buckets: Tuple[int, ...] = (7, 15, 23, 31, 47, 63, 95, 127, 191, 255, 383, 511)
 
     # Rows longer than the largest bucket: "oracle" scores them on the host
-    # with the pure-Python oracle; "extend" grows ad-hoc 2L+1 buckets up to
+    # (by the `fallback` scorer); "extend" grows ad-hoc 2L+1 buckets up to
     # max_extend_len, computed on the device by the plain torch stats.
     overflow_policy: str = "extend"
     max_extend_len: int = 16384
@@ -57,13 +57,25 @@ class StrsimConfig:
     equal_fast_path: bool = True
 
     # When at most this many rows need kernel math, score them on the host
-    # (pure-Python oracle) instead: a size policy for tiny inputs, not a
-    # fallback. Off (0) by default: the JAX engine's 8192 pays for a TPU
-    # compile with its native C++ host path, while here the kernels are
-    # prebuilt and the host path is the pure-Python oracle, slower than a
-    # launch for all but a few rows (tools/profile_torch_e2e.py measures the
-    # crossover).
-    host_short_circuit_rows: int = 0
+    # (the `fallback` scorer) instead: a size policy for tiny inputs, where
+    # the host is faster than a device round trip; not a fallback. Set from
+    # the crossover bench_torch.py measures: on an H100 80GB HBM3 (700 W) and
+    # its host, the native library on every core beat the device up to 922
+    # rows of short names (make_pairs) but only up to 8 rows of 48..511
+    # chars (make_wide_pairs), whose scalar DP costs grow as la * lb; the
+    # smaller holds for both. The JAX engine's 8192 pays for a TPU compile.
+    host_short_circuit_rows: int = 8
+
+    # Scorer of the host rows (the short circuit above, and rows beyond the
+    # ladder): "native" the native library's scalar kernels on every core,
+    # "oracle" the pure-Python oracle. Both are exact; the name is the JAX
+    # engine's, whose host path also served as its fallback.
+    fallback: str = "native"
+
+    # Finalize and scatter each bucket's integer stats in the native library
+    # (threaded, the reference's evaluation order, byte-identical to
+    # ops/finalize.py); False takes the numpy finalizers.
+    native_finalize: bool = True
 
     # Kernel per measure family (IMPL_VALUES). "auto" takes what the JAX
     # engine takes on a TPU: its Pallas kernels' counterparts up to width 512
@@ -83,6 +95,8 @@ class StrsimConfig:
     device: str = "cuda"
 
     def __post_init__(self):
+        if self.fallback not in ("native", "oracle"):
+            raise ValueError(f"fallback={self.fallback!r}: expected 'native' or 'oracle'")
         for family, values in IMPL_VALUES.items():
             value = getattr(self, f"{family}_impl")
             if value not in values:

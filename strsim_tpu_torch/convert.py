@@ -14,13 +14,13 @@ import numpy as np
 from strsim_tpu_torch.config import StrsimConfig
 from strsim_tpu_torch.utils.encode import EncodedColumn
 
-# strsim_tpu.StrsimConfig fields with no counterpart here: host fallbacks and
-# deadlines, Pallas blocks, the device mesh and placement, and the native
-# finalize (bit-identical to the numpy finalizers used here). The six kernel
-# overrides carry over.
+# strsim_tpu.StrsimConfig fields with no counterpart here: compile and
+# execute deadlines, Pallas blocks, the device mesh and placement. The six
+# kernel overrides, the native finalize, the host-row scorer (`fallback`)
+# and the short-circuit size carry over.
 DROPPED_FIELDS = frozenset({
-    "native_finalize", "pallas_block_rows", "compile_timeout_s", "fallback",
-    "execute_timeout_s", "batch_axis", "data_parallel_devices", "device",
+    "pallas_block_rows", "compile_timeout_s", "execute_timeout_s", "batch_axis",
+    "data_parallel_devices", "device",
 })
 
 

@@ -5,15 +5,19 @@ scores. The counterpart of `strsim_tpu/models/pipeline.py:compute_scores`:
   2. resolve null, both-empty, byte-equal and one-empty rows on the host;
   3. bucket the remaining rows by max(len_a, len_b) onto the ladder, narrow
      pure-ASCII buckets to int8, sort each bucket by la + lb, pad it to a
-     size from the batch menu, upload it once and run the stat kernels
-     (ops/stats.py) block by block;
+     size from the batch menu, pack it (native library) into a pinned
+     staging buffer, upload it once without blocking and run the stat
+     kernels (ops/stats.py) block by block;
   4. download the integer stats, finalize exact f64 scores on the host in the
-     reference's order and scatter them back to row order.
+     reference's order and scatter them back to row order (native library,
+     or the numpy finalizers with native_finalize=False).
 
-There is no fallback: a kernel that fails to build or launch raises, and
-`device="cuda"` raises when no GPU is present. Rows beyond the ladder (with
-overflow_policy="oracle" or past max_extend_len) and inputs under
-`host_short_circuit_rows` are scored on the host by the oracle, by design.
+There is no fallback: a kernel or the native library that fails to build or
+launch raises, and `device="cuda"` raises when no GPU is present. Rows
+beyond the ladder (with overflow_policy="oracle" or past max_extend_len) and
+inputs under `host_short_circuit_rows` are scored on the host by design, by
+the native library's scalar kernels on every core (or the oracle, with
+fallback="oracle").
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ import torch
 
 from strsim_tpu_torch.config import StrsimConfig, get_config
 from strsim_tpu_torch.models.measures import MEASURES, resolve_measures
+from strsim_tpu_torch.native import binding as nb
 from strsim_tpu_torch.ops.stats import STAT_FIELDS, compute_stats, stat_routes
 from strsim_tpu_torch.utils import encode as enc
+from strsim_tpu_torch.utils.alloc import staging_empty
 from strsim_tpu_torch.utils.encode import EncodedColumn
 from strsim_tpu_torch.utils.metrics import timer
 
@@ -124,35 +130,26 @@ def compute_scores(
     t_total = timer()
 
     if isinstance(col_a, EncodedColumn) and isinstance(col_b, EncodedColumn):
-        a, b = col_a, col_b
+        a, b, route = col_a, col_b, "encoded"
         if a.width != b.width:
             w = max(a.width, b.width)
             a = enc._repad(a, enc.PAD_A, w)
             b = enc._repad(b, enc.PAD_B, w)
     else:
-        a, b = enc.encode_pair(col_a, col_b)
+        a, b, route = enc.encode_pair_with_route(col_a, col_b)
     a, b = _broadcast_pair(a, b)
     n = a.n
     if metrics is not None:
         metrics.n_rows += n
+        metrics.encode_route = route
         metrics.encode_wall_s += tm.lap()
 
-    validity = a.validity & b.validity
-    la = np.where(validity, a.lengths, 0).astype(np.int32)
-    lb = np.where(validity, b.lengths, 0).astype(np.int32)
+    validity, la, lb, trivial, one_empty, idx = classify(a, b, cfg)
     out = {m: np.full(n, np.nan, dtype=np.float64) for m in measures}
-
-    trivial = validity & (la == 0) & (lb == 0)
-    if cfg.equal_fast_path and n:
-        trivial = trivial | (validity & enc.equal_rows(a, b))
     for m in measures:
         out[m][trivial] = 1.0
-    work = validity & ~trivial
-    # one side empty: 0.0 for every measure (levenshtein's formula gives it too)
-    one_empty = work & ((la == 0) | (lb == 0))
-    for m in measures:
+        # one side empty: 0.0 for every measure (levenshtein's formula gives it too)
         out[m][one_empty] = 0.0
-    idx = np.nonzero(work & ~one_empty)[0]
     if metrics is not None:
         metrics.null_rows += int(n - int(validity.sum()))
         metrics.fast_path_rows += int(trivial.sum())
@@ -162,31 +159,51 @@ def compute_scores(
 
     if idx.size and idx.size <= cfg.host_short_circuit_rows:
         # small input: the host scores it faster than a device round trip
-        _host_rows(out, measures, a, b, idx, metrics)
+        _host_rows(out, measures, a, b, idx, cfg, metrics)
         idx = idx[:0]
 
-    if idx.size:
-        maxlen = np.maximum(la[idx], lb[idx])
-        uniq = np.unique(maxlen)
-        uniq_bucket = np.array([cfg.bucket_for(int(v)) for v in uniq], dtype=np.int64)
-        bucket_of = uniq_bucket[np.searchsorted(uniq, maxlen)]
-        # dispatch every bucket first (uploads and kernels queue on the
-        # stream), then collect and finalize in order
-        pending = []
-        for width in np.unique(bucket_of):
-            sel = idx[bucket_of == width]
-            if width < 0:  # beyond the ladder
-                _host_rows(out, measures, a, b, sel, metrics)
-                continue
-            pending.append(
-                _device_dispatch(measures, a, b, la, lb, sel, int(width), cfg, device)
-            )
-        for item in pending:
-            _device_collect(out, measures, item, metrics)
+    # dispatch every bucket first (uploads and kernels queue on the stream),
+    # then collect and finalize in order
+    pending = []
+    for width, sel in bucket_rows(idx, la, lb, cfg).items():
+        if width < 0:  # beyond the ladder
+            _host_rows(out, measures, a, b, sel, cfg, metrics)
+            continue
+        pending.append(_device_dispatch(measures, a, b, la, lb, sel, width, cfg, device))
+    for item in pending:
+        _device_collect(out, measures, item, cfg, metrics)
 
     if metrics is not None:
         metrics.total_wall_s += t_total.lap()
     return {m: (out[m], validity) for m in measures}
+
+
+def classify(a: EncodedColumn, b: EncodedColumn, cfg: StrsimConfig):
+    """Rows decided on the host: (validity, la, lb, trivial, one_empty,
+    idx). la, lb: int32 lengths, 0 at null rows; trivial: both empty or
+    byte-equal (score 1.0); one_empty: one side empty (0.0); idx: the rows
+    that need kernel math."""
+    validity = a.validity & b.validity
+    la = np.where(validity, a.lengths, 0).astype(np.int32)
+    lb = np.where(validity, b.lengths, 0).astype(np.int32)
+    trivial = validity & (la == 0) & (lb == 0)
+    if cfg.equal_fast_path and a.n:
+        trivial = trivial | (validity & enc.equal_rows(a, b))
+    work = validity & ~trivial
+    one_empty = work & ((la == 0) | (lb == 0))
+    return validity, la, lb, trivial, one_empty, np.nonzero(work & ~one_empty)[0]
+
+
+def bucket_rows(idx, la, lb, cfg: StrsimConfig) -> Dict[int, np.ndarray]:
+    """{bucket width: rows of idx in it}, by max(la, lb) on the ladder; -1
+    holds the rows beyond it (scored on the host)."""
+    if not idx.size:
+        return {}
+    maxlen = np.maximum(la[idx], lb[idx])
+    uniq = np.unique(maxlen)
+    uniq_bucket = np.array([cfg.bucket_for(int(v)) for v in uniq], dtype=np.int64)
+    bucket_of = uniq_bucket[np.searchsorted(uniq, maxlen)]
+    return {int(w): idx[bucket_of == w] for w in np.unique(bucket_of)}
 
 
 def _narrow_bucket(cfg: StrsimConfig, a, b, sel, width: int):
@@ -213,61 +230,87 @@ def _pad_codes(codes: np.ndarray, pad: int, width: int) -> np.ndarray:
     return padded
 
 
-def _device_dispatch(measures, a, b, la, lb, sel, width, cfg, device):
-    """Stage one bucket: sort, pack, upload once, launch the stat kernels
-    block by block. Returns a pending record for _device_collect."""
-    tm = timer()
-    # length-sorted rows keep a warp's per-thread trip counts close together
+def stage_bucket(measures, a, b, la, lb, sel, width: int, cfg: StrsimConfig,
+                 device: torch.device) -> dict:
+    """Sort one bucket's rows `sel` by la + lb, pack them with their lengths
+    into a staging buffer (pinned for a CUDA device) padded to whole blocks,
+    and start the upload to `device` without blocking. Returns the staged
+    bucket: "sel" (sorted), "block", "n_pad", "dtype", "codes" ([n_pad, 2 *
+    width] on the device, a | b per row), "lens" ([2, n_pad] int32 on the
+    device), and "host", the staging tensors, which must stay alive until
+    the upload has completed (the collect's download waits for it)."""
+    # length-sorted rows keep a warp's per-row trip counts close together
     sel = sel[np.argsort(la[sel].astype(np.int64) + lb[sel], kind="stable")]
-    lens_a = la[sel]
-    lens_b = lb[sel]
     dtype, _ = _narrow_bucket(cfg, a, b, sel, width)
     block = min(_block_rows(width, cfg, measures, dtype), _round_batch(sel.size, cfg))
     n_pad = -(-sel.size // block) * block
+    host_codes, packed = staging_empty((n_pad, 2 * width), dtype, device)
+    host_lens, lens = staging_empty((2, n_pad), np.int32, device)
+    if a.codes.dtype == dtype and b.codes.dtype == dtype:
+        nb.pack_bucket(np.ascontiguousarray(a.codes), np.ascontiguousarray(b.codes), la, lb, sel,
+                       width, enc.PAD_A, enc.PAD_B, packed, lens)
+    else:  # int32 columns into an int8 (ASCII) bucket: narrow while packing
+        for half, side, pad in ((slice(0, width), a, enc.PAD_A),
+                                (slice(width, 2 * width), b, enc.PAD_B)):
+            codes = (side.codes[sel, :width] if side.width >= width
+                     else _pad_codes(side.codes[sel], pad, width))
+            packed[: sel.size, half] = codes
+            packed[sel.size :, half] = pad
+        lens[:, sel.size :] = 0
+        lens[0, : sel.size] = la[sel]
+        lens[1, : sel.size] = lb[sel]
+    return {
+        "sel": sel, "block": block, "n_pad": n_pad, "dtype": np.dtype(dtype).name,
+        "codes": host_codes.to(device, non_blocking=True),
+        "lens": host_lens.to(device, non_blocking=True),
+        "host": (host_codes, host_lens),
+    }
 
-    codes_a = a.codes[sel, :width] if a.width >= width else _pad_codes(a.codes[sel], enc.PAD_A, width)
-    codes_b = b.codes[sel, :width] if b.width >= width else _pad_codes(b.codes[sel], enc.PAD_B, width)
-    packed = np.empty((n_pad, 2 * width), dtype=dtype)  # a | b per row
-    packed[: sel.size, :width] = codes_a
-    packed[: sel.size, width:] = codes_b
-    packed[sel.size :, :width] = enc.PAD_A
-    packed[sel.size :, width:] = enc.PAD_B
-    lens = np.zeros((2, n_pad), dtype=np.int32)  # [la; lb], rows contiguous
-    lens[0, : sel.size] = lens_a
-    lens[1, : sel.size] = lens_b
 
-    dev_codes = torch.from_numpy(packed).to(device)
-    dev_lens = torch.from_numpy(lens).to(device)
+def bucket_blocks(staged: dict, width: int):
+    """The staged bucket's blocks as the stat calls take them: (a, b, len_a,
+    len_b), column slices of the packed tile (row stride 2 * width, no
+    copy)."""
+    codes, lens, block = staged["codes"], staged["lens"], staged["block"]
+    for start in range(0, staged["n_pad"], block):
+        rows = slice(start, start + block)
+        yield codes[rows, :width], codes[rows, width:], lens[0, rows], lens[1, rows]
+
+
+def _device_dispatch(measures, a, b, la, lb, sel, width, cfg, device):
+    """Stage one bucket and launch the stat kernels block by block. Returns
+    a pending record for _device_collect."""
+    tm = timer()
+    staged = stage_bucket(measures, a, b, la, lb, sel, width, cfg, device)
     fields = _stat_fields(measures)
     impls = cfg.impls()
     outs = []
-    for start in range(0, n_pad, block):
-        rows = slice(start, start + block)
-        # column slices of the packed tile: row stride 2 * width, no copy
-        stats = compute_stats(
-            dev_codes[rows, :width], dev_codes[rows, width:],
-            dev_lens[0, rows], dev_lens[1, rows], measures, impls,
-        )
+    for block in bucket_blocks(staged, width):
+        stats = compute_stats(*block, measures, impls)
         outs.append(torch.stack([stats[f] for f in fields]))
-    return {
-        "sel": sel, "width": width, "dtype": np.dtype(dtype).name, "n_pad": n_pad, "lens_a": lens_a,
-        "lens_b": lens_b, "outs": outs, "dispatch_dt": tm.lap(),
-    }
+    sel = staged["sel"]
+    return {**staged, "width": width, "lens_a": la[sel], "lens_b": lb[sel], "outs": outs,
+            "dispatch_dt": tm.lap()}
 
 
-def _device_collect(out, measures, item, metrics=None):
+def _device_collect(out, measures, item, cfg, metrics=None):
     tm = timer()
     sel = item["sel"]
-    host = torch.cat(item["outs"], dim=1).cpu().numpy()  # waits for the kernels
-    stats = {
-        f: host[i, : sel.size].astype(np.int64)
-        for i, f in enumerate(_stat_fields(measures))
-    }
+    # waits for the uploads and kernels; [fields, n_pad] int32, C order, so
+    # each field's row is a contiguous vector
+    host = torch.cat(item["outs"], dim=1).cpu().numpy()
+    stats = {f: host[i, : sel.size] for i, f in enumerate(_stat_fields(measures))}
     device_dt = item["dispatch_dt"] + tm.lap()
-    lens_a = item["lens_a"].astype(np.int64)
-    lens_b = item["lens_b"].astype(np.int64)
+    lens_a, lens_b = item["lens_a"], item["lens_b"]
+    stats64 = None
     for m in measures:
-        out[m][sel] = MEASURES[m].finalizer(stats, lens_a, lens_b)
+        if cfg.native_finalize and m in nb.FINALIZE_FIELDS:
+            nb.finalize_scatter(m, stats, lens_a, lens_b, out[m], sel)
+            continue
+        if stats64 is None:
+            stats64 = {f: v.astype(np.int64) for f, v in stats.items()}
+        out[m][sel] = MEASURES[m].finalizer(stats64, lens_a.astype(np.int64),
+                                            lens_b.astype(np.int64))
     if metrics is not None:
         width = item["width"]
         bm = metrics.bucket(width)
@@ -282,14 +325,20 @@ def _device_collect(out, measures, item, metrics=None):
         metrics.finalize_wall_s += tm.lap()
 
 
-def _host_rows(out, measures, a, b, sel, metrics=None):
-    """Score rows on the host with the oracle (small inputs, rows beyond the
-    ladder)."""
-    for i in sel:
-        sa = enc.decode_row(a.codes[i], int(a.lengths[i]))
-        sb = enc.decode_row(b.codes[i], int(b.lengths[i]))
+def _host_rows(out, measures, a, b, sel, cfg, metrics=None):
+    """Score rows on the host (small inputs, rows beyond the ladder): the
+    native scalar kernels on every core, or the oracle (fallback="oracle").
+    Counted as `oracle_rows`, the JAX engine's name for host-scored rows."""
+    if cfg.fallback == "native":
         for m in measures:
-            out[m][i] = MEASURES[m].oracle(sa, sb)
+            out[m][sel] = nb.native_compute(m, a.codes[sel], a.lengths[sel], b.codes[sel],
+                                            b.lengths[sel], threads=0)
+    else:
+        for i in sel:
+            sa = enc.decode_row(a.codes[i], int(a.lengths[i]))
+            sb = enc.decode_row(b.codes[i], int(b.lengths[i]))
+            for m in measures:
+                out[m][i] = MEASURES[m].oracle(sa, sb)
     if metrics is not None:
         metrics.oracle_rows += int(len(sel))
         metrics.device_rows -= int(len(sel))

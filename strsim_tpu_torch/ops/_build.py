@@ -100,6 +100,7 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
         "levenshtein_wavefront.cu",
         {"strsim_levenshtein_wavefront": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P]},
     ),
+    "warm": ("warm.cu", {"strsim_warm": [_P, _P, _LL, _P]}),
 }
 
 _lock = threading.Lock()
@@ -213,27 +214,31 @@ def check_tiles(a, b, len_a, len_b, max_width: int, dtypes) -> bool:
     return kind == "cuda"
 
 
-def launch(lib_name: str, fn_name: str, counts: Tuple[str, ...], a, b, len_a, len_b,
-           outs, *args) -> None:
-    """Launch C function `fn_name` of library `lib_name` on the current
-    stream as fn(a, b, stride_a, stride_b, len_a, len_b, *outs, n, L, *args,
-    stream), where a None in `outs` passes a null pointer (an output the
-    kernel then leaves out). No rows: nothing to launch. Raises if the
-    launch returned a CUDA error; adds one to each launch count in `counts`
-    otherwise."""
-    n, width = a.shape
-    if n == 0:
-        return
+def call(lib_name: str, fn_name: str, counts: Tuple[str, ...], device, *args) -> None:
+    """Call C function `fn_name` of library `lib_name` as fn(*args, stream)
+    on `device`'s current stream. Raises if it returned a CUDA error; adds
+    one to each launch count in `counts` otherwise."""
     fn = getattr(library(lib_name), fn_name)
-    with torch.cuda.device(a.device):
-        rc = fn(a.data_ptr(), b.data_ptr(), a.stride(0), b.stride(0),
-                len_a.data_ptr(), len_b.data_ptr(),
-                *(None if o is None else o.data_ptr() for o in outs),
-                n, width, *args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: cudaError_t {rc}")
     for key in counts:
         _launches[key] = _launches.get(key, 0) + 1
+
+
+def launch(lib_name: str, fn_name: str, counts: Tuple[str, ...], a, b, len_a, len_b,
+           outs, *args) -> None:
+    """Launch a tile kernel as fn(a, b, stride_a, stride_b, len_a, len_b,
+    *outs, n, L, *args, stream) through `call`, where a None in `outs`
+    passes a null pointer (an output the kernel then leaves out). No rows:
+    nothing to launch."""
+    n, width = a.shape
+    if n == 0:
+        return
+    call(lib_name, fn_name, counts, a.device, a.data_ptr(), b.data_ptr(), a.stride(0),
+         b.stride(0), len_a.data_ptr(), len_b.data_ptr(),
+         *(None if o is None else o.data_ptr() for o in outs), n, width, *args)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -33,7 +33,8 @@ class RunMetrics:
     fast_path_rows: int = 0       # both-empty or byte-equal: no device work
     one_empty_rows: int = 0
     device_rows: int = 0
-    oracle_rows: int = 0
+    oracle_rows: int = 0          # scored on the host (native kernels or the oracle)
+    encode_route: str = ""        # utils/encode.py: native_objects, native_utf8, numpy, encoded
     encode_wall_s: float = 0.0
     classify_wall_s: float = 0.0
     device_wall_s: float = 0.0

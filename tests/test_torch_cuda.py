@@ -187,3 +187,53 @@ def test_forced_multiset_hist_on_the_card_matches_oracle(device):
         want = np.array([ORACLES[m](a, b) for a, b in zip(col_a, col_b)])
         assert out[m].tobytes() == want.tobytes(), m
     assert _build.launch_counts().get("multiset_hist", 0) > 0
+
+
+def test_warm_matches_plain(device):
+    """K11 (csrc/warm.cu) equals warm_plain over the whole int32 range, at
+    the benchmark's [8, 128] and on a larger tile, one launch counted a call."""
+    from strsim_tpu_torch.ops.warm_cuda import warm, warm_plain
+
+    rng = np.random.default_rng(4)
+    _build.reset_launch_counts()
+    for shape in ((8, 128), (4096, 128), (3, 5)):
+        x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape).astype(np.int32)).to(device)
+        assert torch.equal(warm(x), warm_plain(x)), shape
+    assert _build.launch_counts() == {"warm": 3}
+
+
+def test_native_paths_on_the_card_match_numpy(device):
+    """The native encode, the native pack into pinned memory and the native
+    finalize through compute_scores on the card, against the numpy encode,
+    the numpy pack (int32 columns into int8 buckets) and the numpy
+    finalizers: byte-identical on all fourteen measures. Blocks of 128 rows,
+    so that buckets span several blocks and rows with la != lb lie past the
+    first (a lengths layout that paired a row with another's lengths would
+    show there)."""
+    import bench
+    from strsim_tpu_torch.models.pipeline import compute_scores
+    from strsim_tpu_torch.utils import encode as enc
+    from strsim_tpu_torch.utils.metrics import RunMetrics
+
+    cfg = tst.get_config().replace(device="cuda", host_short_circuit_rows=0, max_batch_block=128)
+    for col_a, col_b in (bench.make_pairs(6000), bench.make_wide_pairs(700)):
+        rm = RunMetrics()
+        native = compute_scores(col_a, col_b, FIVE + EXT, config=cfg, metrics=rm)
+        assert rm.encode_route in ("native_objects", "native_utf8")
+        assert any(bm.rows > 128 for bm in rm.buckets.values())
+        a, b = enc.encode_pair_numpy(col_a, col_b)
+        numpy = compute_scores(a, b, FIVE + EXT, config=cfg.replace(native_finalize=False))
+        for m in FIVE + EXT:
+            assert native[m][0].tobytes() == numpy[m][0].tobytes(), m
+
+
+def test_device_time_on_the_card(device):
+    """utils/devicetime.py on the card: a positive time a call, larger for a
+    block of twice the work."""
+    from strsim_tpu_torch.utils.devicetime import marginal_block_time
+
+    small = [(torch.ones(1 << 22, device=device),) for _ in range(2)]
+    large = [(torch.ones(1 << 23, device=device),) for _ in range(2)]
+    t_small = marginal_block_time(lambda x: x * 2 + 1, small)
+    t_large = marginal_block_time(lambda x: x * 2 + 1, large)
+    assert 0 < t_small < t_large

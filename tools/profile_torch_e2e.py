@@ -10,7 +10,8 @@ warm-up pass of compute_many over the five measures:
     busy time as the union of its kernel and copy intervals, the idle share
     1 - busy / wall of that pass, and the device ops that took the most time;
   * the host short-circuit crossover: N rows of the workload scored with
-    host_short_circuit_rows = 0 (kernels) and = N (pure-Python oracle).
+    host_short_circuit_rows = 0 (kernels) and = N (the host scorer: the
+    native library on every core).
 
 Imports neither jax nor strsim_tpu. Prints the card's name and power limit
 first, since a card below its maximum power runs slower.
@@ -88,7 +89,7 @@ def main() -> int:
             cfg = st.get_config()
             kernels = timed(lambda: st.compute_many(FIVE, a, b, config=cfg.replace(host_short_circuit_rows=0)))
             host = timed(lambda: st.compute_many(FIVE, a, b, config=cfg.replace(host_short_circuit_rows=n)))
-            print(f"  {label} first {n} rows: kernels {kernels} s, host oracle {host} s", flush=True)
+            print(f"  {label} first {n} rows: kernels {kernels} s, host (native) {host} s", flush=True)
     print(f"card: {card}")
     return 0
 
