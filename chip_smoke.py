@@ -27,6 +27,11 @@ Phases, one line of findings each (any failure exits non-zero):
      K4 at every width on int8 (a forced "pallas_hist" sends it narrow tiles);
      K11 (x * 2 + 1) on [8, 128] and [65536, 128] int32 over the whole int32
      range, beside torch.add(one, x, alpha=2) (`library_ms`);
+     the jaro probes K12-K15 (csrc/probe_jaro.cu, strsim_tpu_torch/probes/)
+     at their tools' widths: K12 (m and both flag words) at w7, w15, w31,
+     K13 (raw m, t on byte slots) at w95, w127, w255, w511 on int8, K14 in
+     both clips at w191, w383, w511, K15 in its four modes at w15, w31, w63,
+     w255, w511 on int8 and w511 on int32;
      with --kernels, the run ends here (an A/B of kernels between two trees
      copies this script into each and runs it there);
   4. end to end: bench.py's make_pairs(1_000_000) and make_wide_pairs(200_000)
@@ -61,6 +66,11 @@ Phases, one line of findings each (any failure exits non-zero):
      passes, 40,000 wide), its launch counts zeroed before and read after
      (K11 and the kernels of its sections must launch), its JSON line
      printed;
+     tools/ab_torch_jaro.py in this process at a reduced size (one width a
+     probe: w15, w255, w383, w31; 2 trip counts), its launch counts zeroed
+     before and read after (K2 and K12-K15, both clips and all four modes,
+     must launch; no probe launches on the main path, the forced paths or
+     bench_torch.py's run), its JSON line printed;
   5. a {"kernels": [...]} JSON line, the card line again, and last
      {"ok": true, "device": {...}}. Each phase-3 case also goes as a JSON line
      to chiprun_out/chip_smoke_kernels.jsonl.
@@ -70,6 +80,7 @@ Imports neither jax nor strsim_tpu. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import multiprocessing
 import pathlib
@@ -116,6 +127,10 @@ KERNELS = {
     "levenshtein_wavefront": ("strsim_tpu_torch/csrc/levenshtein_wavefront.cu",
                               "strsim_tpu/ops/levenshtein_pallas.py:41"),
     "warm": ("strsim_tpu_torch/csrc/warm.cu", "bench.py:685"),
+    "jaro_flags_probe": ("strsim_tpu_torch/csrc/probe_jaro.cu", "tools/ab_jaro_pallas.py:59"),
+    "jaro_packed_t": ("strsim_tpu_torch/csrc/probe_jaro.cu", "tools/ab_jaro_wide.py:38"),
+    "jaro_clipped": ("strsim_tpu_torch/csrc/probe_jaro.cu", "tools/ab_jaro_wide2.py:56"),
+    "jaro_ablated": ("strsim_tpu_torch/csrc/probe_jaro.cu", "tools/ab_jaro_sol_probe.py:62"),
 }
 # K11 and the kernels of bench_torch.py's sections (the five measures alone
 # and together on make_pairs, levenshtein, jaro_winkler, jaccard and osa on
@@ -124,6 +139,13 @@ BENCH_KERNELS = ("warm", "levenshtein_myers", "jaro_scan", "multiset_rank", "mul
                  "lev_jaro_fused", "osa_scan")
 BENCH_ARGS = ("--n-pairs", "200000", "--passes", "3", "--n-wide", "40000")
 BENCH_ONLY = ("warm",)  # launched on bench_torch.py's run, not the main path's
+# K12-K15, the jaro probes (strsim_tpu_torch/probes/jaro.py): launched on
+# phase 3 and on tools/ab_torch_jaro.py's run (PROBE_ARGS, in this process),
+# never on a main path; with K2, their baseline, and each variant's count
+PROBE_ONLY = ("jaro_flags_probe", "jaro_packed_t", "jaro_clipped", "jaro_ablated")
+PROBE_KERNELS = (*PROBE_ONLY, "jaro_scan", "jaro_clipped.row", "jaro_ablated.full",
+                 "jaro_ablated.no_tcount", "jaro_ablated.scan_only", "jaro_ablated.eqb_only")
+PROBE_ARGS = ("--quick", "--trips", "2,6")
 WARM_SHAPES = ((8, 128), (BLOCK, 128))
 # launch counts the main path must also show: K5 with its OSA / LCS outputs on
 VARIANTS = ("lev_jaro_fused.osa", "lev_jaro_fused.lcs")
@@ -405,6 +427,7 @@ def kernel_cases():
     from strsim_tpu_torch.ops import (bigram_cuda, dp_fused_cuda, jaro_cuda, jaro_flags_cuda,
                                       lev_jaro_cuda, levenshtein_cuda,
                                       levenshtein_wavefront_cuda, multiset_cuda, osa_cuda)
+    from strsim_tpu_torch.probes import jaro as probes
 
     def variants(kernel, plain, *flag_sets):
         return [(flags, partial(kernel, **flags), partial(plain, **flags)) for flags in flag_sets]
@@ -414,6 +437,8 @@ def kernel_cases():
                   *({"with_inter": i, "with_osa": o, "with_lcs": o}
                     for i, o in ((True, False), (False, False), (True, True), (False, True))))
     k6 = partial(variants, dp_fused_cuda.dp_fused_stats, dp_fused_cuda.dp_fused_plain)
+    k15 = variants(probes.jaro_ablated, probes.jaro_ablated_plain,
+                   *({"mode": mode} for mode in probes.MODES))
     return [
         ("levenshtein_myers", [({}, levenshtein_cuda.levenshtein_distance,
                                 levenshtein_cuda.myers_plain)], LADDER, both),
@@ -432,6 +457,15 @@ def kernel_cases():
         ("jaro_flags", [({}, jaro_flags_cuda.jaro_flag_scan, jaro_cuda.greedy_scan)], LADDER, both),
         ("levenshtein_wavefront", [({}, levenshtein_wavefront_cuda.levenshtein_distance,
                                     levenshtein_wavefront_cuda.wavefront_plain)], LADDER, both),
+        # the jaro probes K12-K15 at their tools' widths (tools/ab_torch_jaro.py)
+        ("jaro_flags_probe", [({}, probes.jaro_flags_scan, probes.jaro_flags_scan_plain)],
+         (7, 15, 31), both),
+        ("jaro_packed_t", [({}, probes.packed_t_stats, probes.packed_t_stats_plain)],
+         (95, 127, 255, 511), (np.int8,)),
+        ("jaro_clipped", variants(probes.jaro_clipped, probes.jaro_clipped_plain,
+                                  *({"clip": clip} for clip in probes.CLIPS)), (191, 383, 511), both),
+        ("jaro_ablated", k15, (15, 31, 63, 255, 511), (np.int8,)),
+        ("jaro_ablated", k15, (511,), (np.int32,)),
     ]
 
 
@@ -487,7 +521,8 @@ def separate_kernels(a, b, la, lb):
 
 
 def case_label(record) -> str:
-    on = "+".join(k[5:] for k, v in record["flags"].items() if v) or "-"
+    on = "+".join(str(v) if isinstance(v, str) else k[5:]
+                  for k, v in record["flags"].items() if v) or "-"
     rows = "" if record.get("rows", BLOCK) == BLOCK else f" x{record['rows']}"
     return f"{record['name']} {on} w{record['width']} {record['dtype']}{rows}"
 
@@ -809,6 +844,16 @@ def require_launched(what, kernels) -> dict:
     return counts
 
 
+def require_not_launched(what, kernels) -> None:
+    """Raises if any of `kernels` launched since the last reset."""
+    from strsim_tpu_torch.ops import _build
+
+    counts = _build.launch_counts()
+    stray = sorted(k for k in kernels if counts.get(k, 0) > 0)
+    if stray:
+        raise AssertionError(f"kernels launched on {what} that no path of it reaches: {stray}")
+
+
 def _same_scores(label, what, got: dict, want: dict, rows=slice(None)) -> None:
     for m, v in got.items():
         if v.tobytes() != want[m][rows].tobytes():
@@ -838,6 +883,7 @@ def run_forced(st, workloads, scores, five_metrics) -> dict:
               f"in {dt:.3f} s = {n / dt:.0f} pairs/s, byte-identical to the default config",
               flush=True)
     counts = require_launched("the forced path", want)
+    require_not_launched("the forced path", PROBE_ONLY)
     print(f"  launches on the forced path: {counts}", flush=True)
     return counts
 
@@ -866,6 +912,7 @@ def run_forced_combinations(st, workloads, scores) -> None:
                          scores[label], rows)
             want |= routed_kernels(rm, ALL, cfg)
         counts = require_launched(f"forced {overrides}", want)
+        require_not_launched(f"forced {overrides}", PROBE_ONLY)
         print(f"  forced {overrides}: kernels {sorted(counts)}", flush=True)
     print(f"  {len(combos)} other forced combinations x {len(workloads)} workloads, "
           f"{FORCED_ROWS} rows each, all fourteen measures: byte-identical to the default config, "
@@ -960,9 +1007,10 @@ def main(argv) -> int:
     ]
     _build.reset_launch_counts()
     scores, five_metrics, all_metrics, jaccard_metrics = run_workloads(st, workloads)
-    launches = require_launched("the main path", [k for k in (*KERNELS, *VARIANTS)
-                                                  if k not in (*FORCED_KERNELS, *BENCH_ONLY)])
+    launches = require_launched("the main path", [k for k in (*KERNELS, *VARIANTS) if k not in
+                                                  (*FORCED_KERNELS, *BENCH_ONLY, *PROBE_ONLY)])
     print(f"  launches on the main path: {launches}", flush=True)
+    require_not_launched("the main path", PROBE_ONLY)
     for label, *_ in workloads:
         pass_reckoning(label, "five", FIVE, five_metrics[label], cases, st.get_config().impls())
         pass_reckoning(label, "all 14", ALL, all_metrics[label], cases, st.get_config().impls())
@@ -1002,9 +1050,25 @@ def main(argv) -> int:
     if rc != 0:
         raise AssertionError(f"bench_torch.py exited {rc}")
     bench_launches = require_launched("bench_torch.py", BENCH_KERNELS)
+    require_not_launched("bench_torch.py", PROBE_ONLY)
     launches["warm"] = bench_launches["warm"]
     print(f"  bench_torch.py done in {time.perf_counter() - t0:.1f} s; its launches: "
           f"{bench_launches}", flush=True)
+
+    print(f"  tools/ab_torch_jaro.py {' '.join(PROBE_ARGS)}:", flush=True)
+    spec = importlib.util.spec_from_file_location("ab_torch_jaro", ROOT / "tools" / "ab_torch_jaro.py")
+    ab_torch_jaro = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab_torch_jaro)
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = ab_torch_jaro.main([*PROBE_ARGS, "--out", str(OUT_DIR / "ab_torch_jaro_smoke.json")])
+    if rc != 0:
+        raise AssertionError(f"tools/ab_torch_jaro.py exited {rc}")
+    probe_launches = require_launched("tools/ab_torch_jaro.py", PROBE_KERNELS)
+    launches.update((k, probe_launches[k]) for k in PROBE_ONLY)
+    print(f"  tools/ab_torch_jaro.py done in {time.perf_counter() - t0:.1f} s; its launches: "
+          f"{probe_launches}", flush=True)
 
     print(f"phase 5 done in {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [

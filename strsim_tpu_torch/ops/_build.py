@@ -101,6 +101,15 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
         {"strsim_levenshtein_wavefront": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P]},
     ),
     "warm": ("warm.cu", {"strsim_warm": [_P, _P, _LL, _P]}),
+    "probe_jaro": (  # K12-K15, the jaro probes (probes/jaro.py); on no engine path
+        "probe_jaro.cu",
+        {
+            "strsim_probe_jaro_flags": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            "strsim_probe_jaro_packed_t": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
+            "strsim_probe_jaro_clipped": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+            "strsim_probe_jaro_ablated": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        },
+    ),
 }
 
 _lock = threading.Lock()

@@ -81,8 +81,15 @@ def work_ops(name: str, flags: dict, la, lb) -> float:
     histogram (one increment per char of one side, one test-and-decrement
     per char of the other)."""
     wa, wb = _words(la), _words(lb)
-    # K10 computes K1's function, K9 the scan of K2's (its flags are bytes)
-    name = {"levenshtein_wavefront": "levenshtein_myers", "jaro_flags": "jaro_scan"}.get(name, name)
+    if name == "jaro_ablated" and flags.get("mode") == "eqb_only":
+        # K15's eqb_only: b's table, then one read and one XOR per word of b
+        # and a-position (a's padded positions give 0, so la of them)
+        return float(np.sum(lb + 2 * wb * la))
+    # K10 computes K1's function, K9 the scan of K2's (its flags are bytes),
+    # the jaro probes K12-K15 K2's (probes/jaro.py; K15 in its other modes)
+    name = {"levenshtein_wavefront": "levenshtein_myers", "jaro_flags": "jaro_scan",
+            "jaro_flags_probe": "jaro_scan", "jaro_packed_t": "jaro_scan",
+            "jaro_clipped": "jaro_scan", "jaro_ablated": "jaro_scan"}.get(name, name)
     if name in ("levenshtein_myers", "osa_scan", "dp_fused"):  # pattern a, text b
         on = {"levenshtein_myers": {"with_lev": True}, "osa_scan": {"with_osa": True}}.get(name, flags)
         per_word = (MYERS_OPS * on.get("with_lev", False) + OSA_OPS * on.get("with_osa", False)

@@ -1,7 +1,7 @@
 // A CPU stand-in for the CUDA runtime pieces that the lane-group kernels use
 // (csrc/dp_scan.cuh, csrc/jaro_scan.cu, csrc/lev_jaro_fused.cu,
-// csrc/bigram.cu, csrc/multiset.cu), so that their logic runs where there is
-// no card:
+// csrc/bigram.cu, csrc/multiset.cu, csrc/probe_jaro.cu), so that their logic
+// runs where there is no card:
 // tests/test_torch_lane_kernels_cpu.py compiles those sources with g++
 // against this header, as cuda_runtime.h. One std::thread per CUDA thread,
 // the blocks of a launch in turn; every warp collective is a rendezvous of
@@ -153,6 +153,13 @@ inline void __syncwarp(unsigned mask = 0xFFFFFFFFu) {
 }
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// 0xFF in each byte where x and y differ
+inline unsigned __vcmpne4(unsigned x, unsigned y) {
+  unsigned r = 0;
+  for (int k = 0; k < 32; k += 8)
+    if (((x ^ y) >> k) & 0xFFu) r |= 0xFFu << k;
+  return r;
+}
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline int __ffsll(unsigned long long x) { return x ? __builtin_ctzll(x) + 1 : 0; }
 inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned s) {
