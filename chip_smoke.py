@@ -31,7 +31,12 @@ Phases, one line of findings each (any failure exits non-zero):
      at their tools' widths: K12 (m and both flag words) at w7, w15, w31,
      K13 (raw m, t on byte slots) at w95, w127, w255, w511 on int8, K14 in
      both clips at w191, w383, w511, K15 in its four modes at w15, w31, w63,
-     w255, w511 on int8 and w511 on int32;
+     w255, w511 on int8 and w511 on int32; the Myers and fused lev + jaro
+     probes K16-K19 (csrc/probe_myers.cu, csrc/probe_fused_lj.cu,
+     strsim_tpu_torch/probes/myers.py): K16 (its scan and its unrolled
+     steps, over Eq words built once a tile outside the timed launches) and
+     K17 at w7, w15, w31, w32 on int8 and int32, K18 there on int8, K19 at
+     w15 and w31 on int8;
      with --kernels, the run ends here (an A/B of kernels between two trees
      copies this script into each and runs it there);
   4. end to end: bench.py's make_pairs(1_000_000) and make_wide_pairs(200_000)
@@ -66,11 +71,14 @@ Phases, one line of findings each (any failure exits non-zero):
      passes, 40,000 wide), its launch counts zeroed before and read after
      (K11 and the kernels of its sections must launch), its JSON line
      printed;
-     tools/ab_torch_jaro.py in this process at a reduced size (one width a
-     probe: w15, w255, w383, w31; 2 trip counts), its launch counts zeroed
-     before and read after (K2 and K12-K15, both clips and all four modes,
-     must launch; no probe launches on the main path, the forced paths or
-     bench_torch.py's run), its JSON line printed;
+     tools/ab_torch_jaro.py, then tools/ab_torch_myers.py, in this process
+     at a reduced size (one width a probe: w15, w255, w383, w31 for the
+     jaro probes; pallas w15, swar w15, fused_lj L = 31 for the Myers ones;
+     2 trip counts), the launch counts zeroed before each and read after
+     (the jaro tool: K2 and K12-K15, both clips and all four modes; the
+     Myers tool: K1, K2, K5 and K16-K19, K16 in both loop forms; no probe
+     launches on the main path, the forced paths or bench_torch.py's run),
+     each JSON line printed;
   5. a {"kernels": [...]} JSON line, the card line again, and last
      {"ok": true, "device": {...}}. Each phase-3 case also goes as a JSON line
      to chiprun_out/chip_smoke_kernels.jsonl.
@@ -131,6 +139,10 @@ KERNELS = {
     "jaro_packed_t": ("strsim_tpu_torch/csrc/probe_jaro.cu", "tools/ab_jaro_wide.py:38"),
     "jaro_clipped": ("strsim_tpu_torch/csrc/probe_jaro.cu", "tools/ab_jaro_wide2.py:56"),
     "jaro_ablated": ("strsim_tpu_torch/csrc/probe_jaro.cu", "tools/ab_jaro_sol_probe.py:62"),
+    "myers_eq_scan": ("strsim_tpu_torch/csrc/probe_myers.cu", "tools/ab_myers_pallas.py:92"),
+    "myers_ineq": ("strsim_tpu_torch/csrc/probe_myers.cu", "tools/ab_myers_pallas.py:113"),
+    "myers_swar": ("strsim_tpu_torch/csrc/probe_myers.cu", "tools/ab_myers_swar.py:54"),
+    "fused_lev_jaro": ("strsim_tpu_torch/csrc/probe_fused_lj.cu", "tools/ab_fused_lj.py:86"),
 }
 # K11 and the kernels of bench_torch.py's sections (the five measures alone
 # and together on make_pairs, levenshtein, jaro_winkler, jaccard and osa on
@@ -139,12 +151,19 @@ BENCH_KERNELS = ("warm", "levenshtein_myers", "jaro_scan", "multiset_rank", "mul
                  "lev_jaro_fused", "osa_scan")
 BENCH_ARGS = ("--n-pairs", "200000", "--passes", "3", "--n-wide", "40000")
 BENCH_ONLY = ("warm",)  # launched on bench_torch.py's run, not the main path's
-# K12-K15, the jaro probes (strsim_tpu_torch/probes/jaro.py): launched on
-# phase 3 and on tools/ab_torch_jaro.py's run (PROBE_ARGS, in this process),
-# never on a main path; with K2, their baseline, and each variant's count
-PROBE_ONLY = ("jaro_flags_probe", "jaro_packed_t", "jaro_clipped", "jaro_ablated")
-PROBE_KERNELS = (*PROBE_ONLY, "jaro_scan", "jaro_clipped.row", "jaro_ablated.full",
-                 "jaro_ablated.no_tcount", "jaro_ablated.scan_only", "jaro_ablated.eqb_only")
+# The probes, K12-K15 (strsim_tpu_torch/probes/jaro.py) and K16-K19
+# (probes/myers.py): launched on phase 3 and on their tools' runs
+# (PROBE_ARGS, in this process), never on a main path. Each tool must launch
+# its probes, their baselines and each variant's count.
+PROBE_TOOLS = {
+    "ab_torch_jaro": ("jaro_flags_probe", "jaro_packed_t", "jaro_clipped", "jaro_ablated",
+                      "jaro_scan", "jaro_clipped.row", "jaro_ablated.full",
+                      "jaro_ablated.no_tcount", "jaro_ablated.scan_only", "jaro_ablated.eqb_only"),
+    "ab_torch_myers": ("myers_eq_scan", "myers_ineq", "myers_swar", "fused_lev_jaro",
+                       "myers_eq_scan.unroll", "levenshtein_myers", "jaro_scan", "lev_jaro_fused"),
+}
+PROBE_ONLY = ("jaro_flags_probe", "jaro_packed_t", "jaro_clipped", "jaro_ablated",
+              "myers_eq_scan", "myers_ineq", "myers_swar", "fused_lev_jaro")
 PROBE_ARGS = ("--quick", "--trips", "2,6")
 WARM_SHAPES = ((8, 128), (BLOCK, 128))
 # launch counts the main path must also show: K5 with its OSA / LCS outputs on
@@ -428,6 +447,7 @@ def kernel_cases():
                                       lev_jaro_cuda, levenshtein_cuda,
                                       levenshtein_wavefront_cuda, multiset_cuda, osa_cuda)
     from strsim_tpu_torch.probes import jaro as probes
+    from strsim_tpu_torch.probes import myers
 
     def variants(kernel, plain, *flag_sets):
         return [(flags, partial(kernel, **flags), partial(plain, **flags)) for flags in flag_sets]
@@ -439,6 +459,25 @@ def kernel_cases():
     k6 = partial(variants, dp_fused_cuda.dp_fused_stats, dp_fused_cuda.dp_fused_plain)
     k15 = variants(probes.jaro_ablated, probes.jaro_ablated_plain,
                    *({"mode": mode} for mode in probes.MODES))
+    words = {}  # K16's Eq words of each phase-3 tile, built once outside the timed launches
+
+    def eq_of(a, b):
+        key = (a.data_ptr(), b.data_ptr(), tuple(a.shape), a.stride(0))
+        if key not in words:
+            words[key] = myers.pattern_eq_words(a, b)
+        return words[key]
+
+    def k16(loop):
+        unroll = loop == "unroll"
+
+        def kernel(a, b, la, lb):
+            return myers.myers_eq_scan(eq_of(a, b), la, lb, unroll)
+
+        def plain(a, b, la, lb):
+            return myers.myers_eq_scan_plain(eq_of(a, b), la, lb, unroll)
+
+        return {"loop": loop}, kernel, plain
+
     return [
         ("levenshtein_myers", [({}, levenshtein_cuda.levenshtein_distance,
                                 levenshtein_cuda.myers_plain)], LADDER, both),
@@ -466,6 +505,14 @@ def kernel_cases():
                                   *({"clip": clip} for clip in probes.CLIPS)), (191, 383, 511), both),
         ("jaro_ablated", k15, (15, 31, 63, 255, 511), (np.int8,)),
         ("jaro_ablated", k15, (511,), (np.int32,)),
+        # the Myers and fused lev + jaro probes K16-K19 (tools/ab_torch_myers.py),
+        # at one word: the tools' widths and w32
+        ("myers_eq_scan", [k16("scan"), k16("unroll")], (7, 15, 31, 32), both),
+        ("myers_ineq", [({}, myers.myers_ineq, myers.myers_ineq_plain)], (7, 15, 31, 32), both),
+        ("myers_swar", [({}, myers.myers_swar, myers.myers_swar_plain)], (7, 15, 31, 32),
+         (np.int8,)),
+        ("fused_lev_jaro", [({}, myers.fused_lev_jaro, myers.fused_lev_jaro_plain)], (15, 31),
+         (np.int8,)),
     ]
 
 
@@ -1055,20 +1102,20 @@ def main(argv) -> int:
     print(f"  bench_torch.py done in {time.perf_counter() - t0:.1f} s; its launches: "
           f"{bench_launches}", flush=True)
 
-    print(f"  tools/ab_torch_jaro.py {' '.join(PROBE_ARGS)}:", flush=True)
-    spec = importlib.util.spec_from_file_location("ab_torch_jaro", ROOT / "tools" / "ab_torch_jaro.py")
-    ab_torch_jaro = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ab_torch_jaro)
-
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    rc = ab_torch_jaro.main([*PROBE_ARGS, "--out", str(OUT_DIR / "ab_torch_jaro_smoke.json")])
-    if rc != 0:
-        raise AssertionError(f"tools/ab_torch_jaro.py exited {rc}")
-    probe_launches = require_launched("tools/ab_torch_jaro.py", PROBE_KERNELS)
-    launches.update((k, probe_launches[k]) for k in PROBE_ONLY)
-    print(f"  tools/ab_torch_jaro.py done in {time.perf_counter() - t0:.1f} s; its launches: "
-          f"{probe_launches}", flush=True)
+    for tool, tool_kernels in PROBE_TOOLS.items():
+        print(f"  tools/{tool}.py {' '.join(PROBE_ARGS)}:", flush=True)
+        spec = importlib.util.spec_from_file_location(tool, ROOT / "tools" / f"{tool}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = module.main([*PROBE_ARGS, "--out", str(OUT_DIR / f"{tool}_smoke.json")])
+        if rc != 0:
+            raise AssertionError(f"tools/{tool}.py exited {rc}")
+        probe_launches = require_launched(f"tools/{tool}.py", tool_kernels)
+        launches.update((k, probe_launches[k]) for k in PROBE_ONLY if k in tool_kernels)
+        print(f"  tools/{tool}.py done in {time.perf_counter() - t0:.1f} s; its launches: "
+              f"{probe_launches}", flush=True)
 
     print(f"phase 5 done in {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [

@@ -110,6 +110,18 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
             "strsim_probe_jaro_ablated": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         },
     ),
+    "probe_myers": (  # K16-K18, the Myers probes (probes/myers.py); on no engine path
+        "probe_myers.cu",
+        {
+            "strsim_probe_myers_eq_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
+            "strsim_probe_myers_ineq": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
+            "strsim_probe_myers_swar": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _P],
+        },
+    ),
+    "probe_fused_lj": (  # K19, the fused lev + jaro probe (probes/myers.py); on no engine path
+        "probe_fused_lj.cu",
+        {"strsim_probe_fused_lev_jaro": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _P]},
+    ),
 }
 
 _lock = threading.Lock()

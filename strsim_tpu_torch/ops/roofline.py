@@ -85,11 +85,15 @@ def work_ops(name: str, flags: dict, la, lb) -> float:
         # K15's eqb_only: b's table, then one read and one XOR per word of b
         # and a-position (a's padded positions give 0, so la of them)
         return float(np.sum(lb + 2 * wb * la))
+    if name == "myers_eq_scan":  # K16: its Eq words come in ready, no table
+        return float(np.sum(MYERS_OPS * wa * lb))
     # K10 computes K1's function, K9 the scan of K2's (its flags are bytes),
-    # the jaro probes K12-K15 K2's (probes/jaro.py; K15 in its other modes)
+    # the jaro probes K12-K15 K2's (probes/jaro.py; K15 in its other modes),
+    # the Myers probes K17 and K18 K1's (probes/myers.py)
     name = {"levenshtein_wavefront": "levenshtein_myers", "jaro_flags": "jaro_scan",
             "jaro_flags_probe": "jaro_scan", "jaro_packed_t": "jaro_scan",
-            "jaro_clipped": "jaro_scan", "jaro_ablated": "jaro_scan"}.get(name, name)
+            "jaro_clipped": "jaro_scan", "jaro_ablated": "jaro_scan",
+            "myers_ineq": "levenshtein_myers", "myers_swar": "levenshtein_myers"}.get(name, name)
     if name in ("levenshtein_myers", "osa_scan", "dp_fused"):  # pattern a, text b
         on = {"levenshtein_myers": {"with_lev": True}, "osa_scan": {"with_osa": True}}.get(name, flags)
         per_word = (MYERS_OPS * on.get("with_lev", False) + OSA_OPS * on.get("with_osa", False)
@@ -100,12 +104,15 @@ def work_ops(name: str, flags: dict, la, lb) -> float:
         ops = _peq(lb, steps, win) + JARO_OPS * win * steps
     elif name in ("multiset_rank", "multiset_hist"):
         ops = 2 * (la + lb)
-    elif name == "lev_jaro_fused":  # pattern b, text a: one lookup feeds every step
+    elif name in ("lev_jaro_fused", "fused_lev_jaro"):  # one lookup feeds every step
+        # K5 (pattern b, text a), and the probe K19 (probes/myers.py), which
+        # gives lev, m and t alone: no prefix, inter, OSA or LCS
         steps, win = _jaro_window(la, lb)
         per_word = (MYERS_OPS + OSA_OPS * flags.get("with_osa", False)
                     + LCS_OPS * flags.get("with_lcs", False))
-        ops = (_peq(lb, la, wb) + per_word * wb * la + JARO_OPS * win * steps
-               + np.minimum(np.minimum(la, lb), 4))  # the capped prefix
+        ops = _peq(lb, la, wb) + per_word * wb * la + JARO_OPS * win * steps
+        if name == "lev_jaro_fused":
+            ops = ops + np.minimum(np.minimum(la, lb), 4)  # the capped prefix
         if flags.get("with_inter", False):
             ops = ops + 2 * (la + lb)
     elif name == "bigram":  # bigram histograms, then ham_m over the shared positions
@@ -117,11 +124,14 @@ def work_ops(name: str, flags: dict, la, lb) -> float:
 
 def bound(name: str, flags: dict, lens, elem_bytes: int, out_bytes: int, clock_hz: float):
     """(ms, "bytes" or "operations"): the larger of the bytes the function
-    must move (each row's la + lb chars and two lengths read once, its
-    `out_bytes` of outputs written once) over the memory rate, and its
+    must move (each row's la + lb chars, or K16's lb Eq words, and two
+    lengths read once, its `out_bytes` of outputs written once) over the
+    memory rate, and its
     integer operations (`work_ops`) over the INT32 peak."""
     la, lb = lens[0].astype(np.int64), lens[1].astype(np.int64)
-    t_bytes = float(np.sum((la + lb) * elem_bytes + 8 + out_bytes)) / HBM_BYTES_PER_S
+    # K16 reads an Eq word of 4 bytes a text step in place of the chars
+    chars = 4 * lb if name == "myers_eq_scan" else (la + lb) * elem_bytes
+    t_bytes = float(np.sum(chars + 8 + out_bytes)) / HBM_BYTES_PER_S
     t_ops = work_ops(name, flags, la, lb) / (INT32_LANES * clock_hz)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
