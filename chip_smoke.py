@@ -9,7 +9,8 @@ Phases, one line of findings each (any failure exits non-zero):
      and where Python.h lies (the native library's str-object routes need it);
   2. build: every CUDA kernel from csrc/ (K11 csrc/warm.cu among them), one
      nvcc per source in parallel, and the native host library (g++), each
-     build's time;
+     build's time (each library's `-Xptxas -v` log to
+     chiprun_out/ptxas/<library>.log);
   3. kernels: each kernel against its plain torch version on the card, at the
      main path's shapes (65536-row blocks at each ladder width it serves, int8
      and int32 tiles, seeded inputs incl. astral codepoints and the rows of
@@ -36,7 +37,10 @@ Phases, one line of findings each (any failure exits non-zero):
      strsim_tpu_torch/probes/myers.py): K16 (its scan and its unrolled
      steps, over Eq words built once a tile outside the timed launches) and
      K17 at w7, w15, w31, w32 on int8 and int32, K18 there on int8, K19 at
-     w15 and w31 on int8;
+     w15 and w31 on int8; the multiset probes K20-K22
+     (csrc/probe_multiset.cu, strsim_tpu_torch/probes/multiset.py) at every
+     narrow width: K20 in its three modes and K22 with 4 and 8 a-positions a
+     read on int8 and int32, K21 on int8;
      with --kernels, the run ends here (an A/B of kernels between two trees
      copies this script into each and runs it there);
   4. end to end: bench.py's make_pairs(1_000_000) and make_wide_pairs(200_000)
@@ -71,12 +75,14 @@ Phases, one line of findings each (any failure exits non-zero):
      passes, 40,000 wide), its launch counts zeroed before and read after
      (K11 and the kernels of its sections must launch), its JSON line
      printed;
-     tools/ab_torch_jaro.py, then tools/ab_torch_myers.py, in this process
-     at a reduced size (one width a probe: w15, w255, w383, w31 for the
-     jaro probes; pallas w15, swar w15, fused_lj L = 31 for the Myers ones;
-     2 trip counts), the launch counts zeroed before each and read after
-     (the jaro tool: K2 and K12-K15, both clips and all four modes; the
-     Myers tool: K1, K2, K5 and K16-K19, K16 in both loop forms; no probe
+     tools/ab_torch_jaro.py, tools/ab_torch_myers.py, then
+     tools/ab_torch_multiset.py, in this process at a reduced size (one
+     width a probe: w15, w255, w383, w31 for the jaro probes; pallas w15,
+     swar w15, fused_lj L = 31 for the Myers ones; w15 for the multiset
+     ones; 2 trip counts), the launch counts zeroed before each and read
+     after (the jaro tool: K2 and K12-K15, both clips and all four modes;
+     the Myers tool: K1, K2, K5 and K16-K19, K16 in both loop forms; the
+     multiset tool: K3, K4 and K20-K22, K20 in all three modes; no probe
      launches on the main path, the forced paths or bench_torch.py's run),
      each JSON line printed;
   5. a {"kernels": [...]} JSON line, the card line again, and last
@@ -143,6 +149,11 @@ KERNELS = {
     "myers_ineq": ("strsim_tpu_torch/csrc/probe_myers.cu", "tools/ab_myers_pallas.py:113"),
     "myers_swar": ("strsim_tpu_torch/csrc/probe_myers.cu", "tools/ab_myers_swar.py:54"),
     "fused_lev_jaro": ("strsim_tpu_torch/csrc/probe_fused_lj.cu", "tools/ab_fused_lj.py:86"),
+    # K20 also replaces tools/ab_multiset_r3.py's _kernel_tree :40 and _kernel_astype :66
+    "multiset_unrolled": ("strsim_tpu_torch/csrc/probe_multiset.cu",
+                          "tools/ab_multiset_pallas.py:39"),
+    "multiset_swar": ("strsim_tpu_torch/csrc/probe_multiset.cu", "tools/ab_multiset_r3.py:89"),
+    "multiset_blocked": ("strsim_tpu_torch/csrc/probe_multiset.cu", "tools/ab_multiset_r3.py:140"),
 }
 # K11 and the kernels of bench_torch.py's sections (the five measures alone
 # and together on make_pairs, levenshtein, jaro_winkler, jaccard and osa on
@@ -151,8 +162,9 @@ BENCH_KERNELS = ("warm", "levenshtein_myers", "jaro_scan", "multiset_rank", "mul
                  "lev_jaro_fused", "osa_scan")
 BENCH_ARGS = ("--n-pairs", "200000", "--passes", "3", "--n-wide", "40000")
 BENCH_ONLY = ("warm",)  # launched on bench_torch.py's run, not the main path's
-# The probes, K12-K15 (strsim_tpu_torch/probes/jaro.py) and K16-K19
-# (probes/myers.py): launched on phase 3 and on their tools' runs
+# The probes, K12-K15 (strsim_tpu_torch/probes/jaro.py), K16-K19
+# (probes/myers.py) and K20-K22 (probes/multiset.py): launched on phase 3 and
+# on their tools' runs
 # (PROBE_ARGS, in this process), never on a main path. Each tool must launch
 # its probes, their baselines and each variant's count.
 PROBE_TOOLS = {
@@ -161,9 +173,13 @@ PROBE_TOOLS = {
                       "jaro_ablated.no_tcount", "jaro_ablated.scan_only", "jaro_ablated.eqb_only"),
     "ab_torch_myers": ("myers_eq_scan", "myers_ineq", "myers_swar", "fused_lev_jaro",
                        "myers_eq_scan.unroll", "levenshtein_myers", "jaro_scan", "lev_jaro_fused"),
+    "ab_torch_multiset": ("multiset_unrolled", "multiset_swar", "multiset_blocked",
+                          "multiset_unrolled.select", "multiset_unrolled.tree",
+                          "multiset_unrolled.astype", "multiset_rank", "multiset_hist"),
 }
 PROBE_ONLY = ("jaro_flags_probe", "jaro_packed_t", "jaro_clipped", "jaro_ablated",
-              "myers_eq_scan", "myers_ineq", "myers_swar", "fused_lev_jaro")
+              "myers_eq_scan", "myers_ineq", "myers_swar", "fused_lev_jaro",
+              "multiset_unrolled", "multiset_swar", "multiset_blocked")
 PROBE_ARGS = ("--quick", "--trips", "2,6")
 WARM_SHAPES = ((8, 128), (BLOCK, 128))
 # launch counts the main path must also show: K5 with its OSA / LCS outputs on
@@ -447,7 +463,7 @@ def kernel_cases():
                                       lev_jaro_cuda, levenshtein_cuda,
                                       levenshtein_wavefront_cuda, multiset_cuda, osa_cuda)
     from strsim_tpu_torch.probes import jaro as probes
-    from strsim_tpu_torch.probes import myers
+    from strsim_tpu_torch.probes import multiset, myers
 
     def variants(kernel, plain, *flag_sets):
         return [(flags, partial(kernel, **flags), partial(plain, **flags)) for flags in flag_sets]
@@ -477,6 +493,14 @@ def kernel_cases():
             return myers.myers_eq_scan_plain(eq_of(a, b), la, lb, unroll)
 
         return {"loop": loop}, kernel, plain
+
+    def on_len_a(fn, **kw):  # the multiset probes read len_a only
+        return lambda a, b, la, lb: fn(a, b, la, **kw)
+
+    k20 = [({"mode": m}, on_len_a(multiset.multiset_unrolled, mode=m),
+            on_len_a(multiset.multiset_unrolled_plain, mode=m)) for m in multiset.MODES]
+    k22 = [({"gi": f"gi{g}"}, on_len_a(multiset.multiset_blocked, gi=g),
+            on_len_a(multiset.multiset_blocked_plain, gi=g)) for g in multiset.GROUPS]
 
     return [
         ("levenshtein_myers", [({}, levenshtein_cuda.levenshtein_distance,
@@ -513,6 +537,11 @@ def kernel_cases():
          (np.int8,)),
         ("fused_lev_jaro", [({}, myers.fused_lev_jaro, myers.fused_lev_jaro_plain)], (15, 31),
          (np.int8,)),
+        # the multiset probes K20-K22 (tools/ab_torch_multiset.py), at every narrow width
+        ("multiset_unrolled", k20, NARROW, both),
+        ("multiset_swar", [({}, on_len_a(multiset.multiset_swar),
+                            on_len_a(multiset.multiset_swar_plain))], NARROW, (np.int8,)),
+        ("multiset_blocked", k22, NARROW, both),
     ]
 
 
@@ -1031,7 +1060,9 @@ def main(argv) -> int:
     print(f"phase 2 build: {len(_build.LIBRARIES)} libraries ready in "
           f"{time.perf_counter() - t0:.1f} s (built here: "
           f"{', '.join(f'{k} {v[0]:.1f} s' for k, v in sorted(built.items()))})", flush=True)
+    (OUT_DIR / "ptxas").mkdir(parents=True, exist_ok=True)
     for name, (_, log) in sorted(built.items()):
+        (OUT_DIR / "ptxas" / f"{name}.log").write_text(log)  # each kernel's registers and spills
         print(f"  ptxas {name}: {ptxas_summary(log)}")
     t0 = time.perf_counter()
     native_build.get_lib()

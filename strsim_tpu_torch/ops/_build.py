@@ -122,6 +122,14 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
         "probe_fused_lj.cu",
         {"strsim_probe_fused_lev_jaro": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _P]},
     ),
+    "probe_multiset": (  # K20-K22, the multiset probes (probes/multiset.py); on no engine path
+        "probe_multiset.cu",
+        {
+            "strsim_probe_multiset_unrolled": [_P, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _P],
+            "strsim_probe_multiset_swar": [_P, _P, _LL, _LL, _P, _P, _I, _I, _P],
+            "strsim_probe_multiset_blocked": [_P, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _P],
+        },
+    ),
 }
 
 _lock = threading.Lock()

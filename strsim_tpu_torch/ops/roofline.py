@@ -89,11 +89,14 @@ def work_ops(name: str, flags: dict, la, lb) -> float:
         return float(np.sum(MYERS_OPS * wa * lb))
     # K10 computes K1's function, K9 the scan of K2's (its flags are bytes),
     # the jaro probes K12-K15 K2's (probes/jaro.py; K15 in its other modes),
-    # the Myers probes K17 and K18 K1's (probes/myers.py)
+    # the Myers probes K17 and K18 K1's (probes/myers.py), the multiset probes
+    # K20-K22 K3's (probes/multiset.py)
     name = {"levenshtein_wavefront": "levenshtein_myers", "jaro_flags": "jaro_scan",
             "jaro_flags_probe": "jaro_scan", "jaro_packed_t": "jaro_scan",
             "jaro_clipped": "jaro_scan", "jaro_ablated": "jaro_scan",
-            "myers_ineq": "levenshtein_myers", "myers_swar": "levenshtein_myers"}.get(name, name)
+            "myers_ineq": "levenshtein_myers", "myers_swar": "levenshtein_myers",
+            "multiset_unrolled": "multiset_rank", "multiset_swar": "multiset_rank",
+            "multiset_blocked": "multiset_rank"}.get(name, name)
     if name in ("levenshtein_myers", "osa_scan", "dp_fused"):  # pattern a, text b
         on = {"levenshtein_myers": {"with_lev": True}, "osa_scan": {"with_osa": True}}.get(name, flags)
         per_word = (MYERS_OPS * on.get("with_lev", False) + OSA_OPS * on.get("with_osa", False)

@@ -18,6 +18,7 @@ from strsim_tpu_torch.ops import (_build, bigram_cuda, dp_fused_cuda, jaro_cuda,
                                   lev_jaro_cuda, levenshtein_cuda, levenshtein_wavefront_cuda,
                                   multiset_cuda, osa_cuda)
 from strsim_tpu_torch.ops.oracle import ORACLES
+from strsim_tpu_torch.probes import multiset as multiset_probes
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import make_tiles  # noqa: E402
@@ -43,6 +44,11 @@ def packed_tiles(seed: int, n: int, width: int, dtype, device):
     codes = torch.from_numpy(packed).to(device)
     lengths = torch.from_numpy(lens).to(device)
     return codes[:, :width], codes[:, width:], lengths[0], lengths[1]
+
+
+def _len_a_only(fn, a, b, la, lb, **kw):
+    """The multiset probes read len_a only; b's pads stand in for len_b."""
+    return fn(a, b, la, **kw)
 
 
 CASES = [
@@ -87,6 +93,17 @@ CASES = [
                  levenshtein_wavefront_cuda.wavefront_plain,
                  (1, 2, 7, 31, 63, 64, 65, 128, 129, 255, 256, 257, 511, 512), (np.int8, np.int32),
                  id="levenshtein_wavefront"),
+    *(pytest.param(partial(_len_a_only, multiset_probes.multiset_unrolled, mode=mode),
+                   partial(_len_a_only, multiset_probes.multiset_unrolled_plain, mode=mode),
+                   multiset_probes.WIDTHS, (np.int8, np.int32), id=f"multiset_unrolled_{mode}")
+      for mode in multiset_probes.MODES),
+    pytest.param(partial(_len_a_only, multiset_probes.multiset_swar),
+                 partial(_len_a_only, multiset_probes.multiset_swar_plain),
+                 multiset_probes.WIDTHS, (np.int8,), id="multiset_swar"),
+    *(pytest.param(partial(_len_a_only, multiset_probes.multiset_blocked, gi=gi),
+                   partial(_len_a_only, multiset_probes.multiset_blocked_plain, gi=gi),
+                   multiset_probes.WIDTHS, (np.int8, np.int32), id=f"multiset_blocked_{gi}")
+      for gi in multiset_probes.GROUPS),
 ]
 
 

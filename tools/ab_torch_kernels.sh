@@ -12,8 +12,8 @@
 # LABEL.<run>.log and LABEL.<run>.jsonl (one line per phase-3 case: kernel,
 # device, plain and bound times), ptxas/LABEL.<library>.log (`nvcc -Xptxas -v`
 # of the six lane-group sources, csrc/multiset.cu (K3/K4) and
-# csrc/probe_jaro.cu, probe_myers.cu and probe_fused_lj.cu (the probes
-# K12-K19)) and LABEL.cuda.log
+# csrc/probe_jaro.cu, probe_myers.cu, probe_fused_lj.cu and probe_multiset.cu
+# (the probes K12-K22)) and LABEL.cuda.log
 # (tests/test_torch_cuda.py on the card).
 set -u
 cd "$(dirname "$0")/.."
@@ -25,7 +25,7 @@ mkdir -p $O/ptxas
 nvidia-smi --query-gpu=name,power.limit,clocks.max.sm --format=csv,noheader
 python3 -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)'
 for f in levenshtein_myers dp_fused osa_scan jaro_scan lev_jaro_fused bigram multiset probe_jaro \
-    probe_myers probe_fused_lj; do
+    probe_myers probe_fused_lj probe_multiset; do
   /usr/local/cuda/bin/nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
     -Xcompiler -fPIC -Xptxas -v -o "${TMPDIR:-/tmp}/$LABEL.$f.so" strsim_tpu_torch/csrc/$f.cu \
     > $O/ptxas/$LABEL.$f.log 2>&1 &
