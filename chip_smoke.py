@@ -15,7 +15,10 @@ Phases, one line of findings each (any failure exits non-zero):
      main path's shapes (65536-row blocks at each ladder width it serves, int8
      and int32 tiles, seeded inputs incl. astral codepoints and the rows of
      `lane_rows` and every word-boundary length, one set of tiles per width
-     and dtype that every kernel there reads), K5 with its
+     and dtype that every kernel there reads), K2 with and without the
+     prefix (and without it also beside the plain prefix, the route's time
+     before the prefix moved into K2), first K2's residency at each ladder
+     width (blocks an SM, registers, local and shared memory), K5 with its
      multiset, OSA and LCS outputs on and off, K6 with all three recurrences
      at every width and with {lev, osa}, {osa, lcs}, {lcs} at w31/w63/w255;
      integers must match exactly; both times from CUDA events, and the
@@ -27,7 +30,8 @@ Phases, one line of findings each (any failure exits non-zero):
      K9 (its m and both flag tensors) and K10 at every width on both dtypes,
      K4 at every width on int8 (a forced "pallas_hist" sends it narrow tiles);
      K11 (x * 2 + 1) on [8, 128] and [65536, 128] int32 over the whole int32
-     range, beside torch.add(one, x, alpha=2) (`library_ms`);
+     range, on an offset view of the latter and on 3 and 1,021 elements,
+     beside torch.add(one, x, alpha=2) (`library_ms`);
      the jaro probes K12-K15 (csrc/probe_jaro.cu, strsim_tpu_torch/probes/)
      at their tools' widths: K12 (m and both flag words) at w7, w15, w31,
      K13 (raw m, t on byte slots) at w95, w127, w255, w511 on int8, K14 in
@@ -50,9 +54,11 @@ Phases, one line of findings each (any failure exits non-zero):
      finalize; the host phases and the encode route of each pass printed),
      with the launch counts zeroed just before and read
      just after (K1-K8 must all launch, K5 also with its OSA and LCS outputs
-     on), and for the five, all fourteen and a jaccard() pass (K3 at
-     w7..w63, K4 above) each kernel's event and device time per pass from
-     the buckets' rows and phase 3's times (`pass_reckoning`); then the
+     on, K2 with its prefix), and for the five, all fourteen, a jaccard()
+     pass (K3 at w7..w63, K4 above) and a jaro() pass each kernel's event
+     and device time per pass from the buckets' rows and phase 3's times
+     (`pass_reckoning`), and for the five and the jaro pass the route of the
+     prefix on each bucket (K2's wherever K2 serves jaro_m); then the
      forced-implementation path, compute_many over the five
      with levenshtein_impl="pallas", jaro_impl="pallas" on both workloads
      whole, and every other forced combination (DIFFERENTIAL and
@@ -95,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib.util
+import inspect
 import json
 import multiprocessing
 import pathlib
@@ -181,9 +188,14 @@ PROBE_ONLY = ("jaro_flags_probe", "jaro_packed_t", "jaro_clipped", "jaro_ablated
               "myers_eq_scan", "myers_ineq", "myers_swar", "fused_lev_jaro",
               "multiset_unrolled", "multiset_swar", "multiset_blocked")
 PROBE_ARGS = ("--quick", "--trips", "2,6")
-WARM_SHAPES = ((8, 128), (BLOCK, 128))
-# launch counts the main path must also show: K5 with its OSA / LCS outputs on
-VARIANTS = ("lev_jaro_fused.osa", "lev_jaro_fused.lcs")
+# K11's cases: (label, shape, elements skipped at the front of the flattened
+# tensor): bench.py's tile, a block's worth, an offset view (a 4-byte shift
+# from the 16-byte boundary of the output), n < 4 and n % 4 != 0
+WARM_CASES = (("8x128", (8, 128), 0), ("65536x128", (BLOCK, 128), 0),
+              ("65536x128+1", (BLOCK, 128), 1), ("3", (3,), 0), ("1021", (1021,), 0))
+# launch counts the main path must also show: K5 with its OSA / LCS outputs
+# on, K2 with the prefix
+VARIANTS = ("lev_jaro_fused.osa", "lev_jaro_fused.lcs", "jaro_scan.prefix")
 # the forced-implementation path (tests/test_differential.py:50-52) and the
 # kernels only it reaches
 FORCED = {"levenshtein_impl": "pallas", "jaro_impl": "pallas"}
@@ -497,6 +509,10 @@ def kernel_cases():
     def on_len_a(fn, **kw):  # the multiset probes read len_a only
         return lambda a, b, la, lb: fn(a, b, la, **kw)
 
+    k2 = [({}, jaro_cuda.jaro_match_stats, jaro_cuda.jaro_plain)]
+    if "with_prefix" in inspect.signature(jaro_cuda.jaro_match_stats).parameters:
+        k2 += variants(jaro_cuda.jaro_match_stats, jaro_cuda.jaro_plain, {"with_prefix": True})
+
     k20 = [({"mode": m}, on_len_a(multiset.multiset_unrolled, mode=m),
             on_len_a(multiset.multiset_unrolled_plain, mode=m)) for m in multiset.MODES]
     k22 = [({"gi": f"gi{g}"}, on_len_a(multiset.multiset_blocked, gi=g),
@@ -505,7 +521,7 @@ def kernel_cases():
     return [
         ("levenshtein_myers", [({}, levenshtein_cuda.levenshtein_distance,
                                 levenshtein_cuda.myers_plain)], LADDER, both),
-        ("jaro_scan", [({}, jaro_cuda.jaro_match_stats, jaro_cuda.jaro_plain)], LADDER, both),
+        ("jaro_scan", k2, LADDER, both),
         ("multiset_rank", [({}, multiset_cuda.multiset_intersection_rank,
                             multiset_cuda.rank_plain)], NARROW, both),
         # K4 serves int8 above 63 under "auto" and every width under "pallas_hist"
@@ -546,11 +562,11 @@ def kernel_cases():
 
 
 def check_warm(device, clock_hz: float, rng) -> dict:
-    """K11 against warm_plain, exactly, on [8, 128] and [65536, 128] int32
-    drawn over the whole int32 range (x * 2 + 1 wraps), timed beside the
-    PyTorch call that computes the same function, torch.add(one, x,
-    alpha=2) with `one` allocated beforehand. Returns {"summary": the
-    kernel's summed entry, "cases": [(record, launch)]}."""
+    """K11 against warm_plain, exactly, on each of WARM_CASES, int32 drawn
+    over the whole int32 range (x * 2 + 1 wraps), timed beside the PyTorch
+    call that computes the same function, torch.add(one, x, alpha=2) with
+    `one` allocated beforehand. Returns {"summary": the kernel's summed
+    entry, "cases": [(record, launch)]}."""
     from functools import partial
 
     import torch
@@ -561,28 +577,49 @@ def check_warm(device, clock_hz: float, rng) -> dict:
     entry = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
              "library_ms": 0.0}
     cases = []
-    for rows, width in WARM_SHAPES:
-        x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (rows, width)).astype(np.int32)).to(device)
+    for label, shape, skip in WARM_CASES:
+        whole = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape).astype(np.int32)).to(device)
+        x = whole.view(-1)[skip:] if skip else whole
         one = torch.ones_like(x)
         got, want = warm(x), warm_plain(x)
         p_ms = time_ms(lambda: warm_plain(x), 1, warm_up=False)
         if not torch.equal(got, want):
-            raise AssertionError(f"warm {rows}x{width}: kernel != plain at "
+            raise AssertionError(f"warm {label}: kernel != plain at "
                                  f"{tuple(torch.nonzero(got != want)[0].tolist())}")
         if not torch.equal(torch.add(one, x, alpha=2), want):
             raise AssertionError("torch.add(one, x, alpha=2) differs from x * 2 + 1")
         k_ms = time_ms(lambda: warm(x), 5)
         lib_ms = time_ms(lambda: torch.add(one, x, alpha=2), 5)
         b_ms, b_by = warm_bound(x.numel(), clock_hz)
-        record = {"name": "warm", "flags": {}, "width": width, "dtype": "int32", "rows": rows,
-                  "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                  "library_ms": lib_ms}
+        record = {"name": "warm", "flags": {"shape": label}, "width": x.shape[-1],
+                  "dtype": "int32", "rows": x.numel() // x.shape[-1], "ms": k_ms, "plain_ms": p_ms,
+                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         record["label"] = case_label(record)
         cases.append((record, partial(warm, x)))
         for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms), ("library_ms", lib_ms)):
             entry[k] += v
         entry["bound_by"][b_by] = entry["bound_by"].get(b_by, 0) + 1
     return {"summary": entry, "cases": cases}
+
+
+def print_residency() -> None:
+    """K2's residency at each ladder width (one instantiation each) and
+    dtype, with and without the prefix: blocks an SM holds by the occupancy
+    calculator, registers and local memory a thread, shared memory a
+    block."""
+    import torch
+
+    from strsim_tpu_torch.ops import _build, jaro_cuda
+
+    if "strsim_jaro_scan_residency" not in _build.LIBRARIES["jaro_scan"][1]:
+        return  # a tree from before the entry point
+    for dtype in (torch.int8, torch.int32):
+        for width in LADDER:
+            on = [jaro_cuda.residency(width, dtype, p) for p in (False, True)]
+            print(f"  K2 residency w{width} {str(dtype)[6:]}: " + "; ".join(
+                f"{label} blocks/SM {r['blocks_per_sm']}, registers {r['registers']}, local "
+                f"{r['local_bytes']} B, shared {r['smem_bytes']} B"
+                for label, r in zip(("m, t", "with prefix"), on)), flush=True)
 
 
 def separate_kernels(a, b, la, lb):
@@ -618,6 +655,7 @@ def check_kernels(device, clock_hz: float, only=None):
     import torch
 
     from strsim_tpu_torch.ops.roofline import bound
+    from strsim_tpu_torch.ops.stats import shared_prefix_length
 
     rng = np.random.default_rng(SEED)
     tiles = {}  # (width, dtype) -> (card tensors, lengths): one set for every kernel
@@ -669,6 +707,9 @@ def check_kernels(device, clock_hz: float, only=None):
                     if name == "lev_jaro_fused" and flags == {"with_inter": True, "with_osa": False,
                                                               "with_lcs": False}:
                         record["separate_ms"] = time_ms(lambda: separate_kernels(*args), 5)
+                    if name == "jaro_scan" and not flags:  # the route's time before the prefix moved
+                        record["with_plain_prefix_ms"] = time_ms(
+                            lambda: (kernel(*args), shared_prefix_length(*args[:2])), 5)
                     cases.append(record)
                     launches.append((label, partial(kernel, *args)))
                     entry["ms"] += k_ms
@@ -693,6 +734,8 @@ def check_kernels(device, clock_hz: float, only=None):
             log.write(json.dumps(record) + "\n")
             extra = (f", separate K1+K2+K3+prefix {record['separate_ms']:.4f} ms"
                      if "separate_ms" in record else "")
+            if "with_plain_prefix_ms" in record:
+                extra += f", with the plain prefix {record['with_plain_prefix_ms']:.4f} ms"
             if "library_ms" in record:
                 extra += f", library (torch.add) {record['library_ms']:.4f} ms"
             print(f"  {case_label(record):42s} rows {record['rows']}: exact, kernel {record['ms']:.4f} ms "
@@ -810,11 +853,12 @@ def run_workloads(st, workloads) -> dict:
     (the single multiset function's buckets, which K3 and K4 serve). Every
     result must equal compute_many over all fourteen. Returns ({label:
     compute_many(all fourteen) scores}, {label: RunMetrics} of the five,
-    all-fourteen and jaccard passes)."""
+    all-fourteen, jaccard and jaro passes). The jaro pass (jaro alone, which
+    K2 serves with the prefix at every width) must equal the default too."""
     from strsim_tpu_torch.models.pipeline import compute_scores
     from strsim_tpu_torch.utils.metrics import RunMetrics
 
-    scores, five_metrics, all_metrics, jaccard_metrics = {}, {}, {}, {}
+    scores, five_metrics, all_metrics, jaccard_metrics, jaro_metrics = {}, {}, {}, {}, {}
     for label, col_a, col_b in workloads:
         n = len(col_a)
         five, dt = _timed(lambda: st.compute_many(FIVE, col_a, col_b))
@@ -842,8 +886,13 @@ def run_workloads(st, workloads) -> dict:
         if res["jaccard"][0].tobytes() != many["jaccard"].tobytes():
             raise AssertionError(f"{label}: the jaccard pass differs from compute_many(all 14)")
         _phases(label, "jaccard", rm)
+        rm = jaro_metrics[label] = RunMetrics()
+        res = compute_scores(col_a, col_b, ["jaro"], metrics=rm)
+        if res["jaro"][0].tobytes() != many["jaro"].tobytes():
+            raise AssertionError(f"{label}: the jaro pass differs from compute_many(all 14)")
+        _phases(label, "jaro", rm)
         scores[label] = many
-    return scores, five_metrics, all_metrics, jaccard_metrics
+    return scores, five_metrics, all_metrics, jaccard_metrics, jaro_metrics
 
 
 def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
@@ -881,6 +930,25 @@ def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
         print(f"  per pass, {label} {measures_label}: {kernel} {t['ms']:.4f} ms, device "
               f"{t['device_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, {t['rows']} rows at "
               f"w{min(t['widths'])}..w{max(t['widths'])}", flush=True)
+
+
+def check_prefix_routes(label, measures_label, measures, rm, impls) -> None:
+    """Through stat_routes on the buckets of the pass that filled RunMetrics
+    `rm`: the prefix comes from K2 wherever K2 serves jaro_m. Prints the
+    route that serves the prefix on each bucket."""
+    import torch
+
+    from strsim_tpu_torch.ops.stats import stat_routes
+
+    by_route = {}
+    for bm in sorted(rm.buckets.values(), key=lambda bm: (bm.dtype, bm.width)):
+        routes = stat_routes(measures, bm.width, getattr(torch, bm.dtype), impls)
+        if routes.get("jaro_m") == "jaro_scan" and routes.get("prefix") != "jaro_scan":
+            raise AssertionError(f"{label} {measures_label} w{bm.width}: K2 serves jaro_m but the "
+                                 f"prefix goes to {routes.get('prefix')}")
+        by_route.setdefault(routes.get("prefix"), []).append(f"w{bm.width} {bm.dtype}")
+    print(f"  prefix, {label} {measures_label}: " + "; ".join(
+        f"{route} on {', '.join(widths)}" for route, widths in by_route.items()), flush=True)
 
 
 def single_overrides():
@@ -1071,6 +1139,8 @@ def main(argv) -> int:
           f"{native_build.has_object_routes()})", flush=True)
 
     print("phase 3 kernels vs plain torch on the card:", flush=True)
+    if only is None or "jaro_scan" in only:
+        print_residency()
     summary, cases = check_kernels(device, clock_hz, only)
     if only is not None:
         return 0 if set(only) <= set(summary) else 2
@@ -1084,7 +1154,7 @@ def main(argv) -> int:
         ("make_wide_pairs(200_000)", *bench.make_wide_pairs(200_000)),
     ]
     _build.reset_launch_counts()
-    scores, five_metrics, all_metrics, jaccard_metrics = run_workloads(st, workloads)
+    scores, five_metrics, all_metrics, jaccard_metrics, jaro_metrics = run_workloads(st, workloads)
     launches = require_launched("the main path", [k for k in (*KERNELS, *VARIANTS) if k not in
                                                   (*FORCED_KERNELS, *BENCH_ONLY, *PROBE_ONLY)])
     print(f"  launches on the main path: {launches}", flush=True)
@@ -1094,6 +1164,9 @@ def main(argv) -> int:
         pass_reckoning(label, "all 14", ALL, all_metrics[label], cases, st.get_config().impls())
         pass_reckoning(label, "jaccard", ("jaccard",), jaccard_metrics[label], cases,
                        st.get_config().impls())
+        pass_reckoning(label, "jaro", ("jaro",), jaro_metrics[label], cases, st.get_config().impls())
+        check_prefix_routes(label, "five", FIVE, five_metrics[label], st.get_config().impls())
+        check_prefix_routes(label, "jaro", ("jaro",), jaro_metrics[label], st.get_config().impls())
     forced_launches = run_forced(st, workloads, scores, five_metrics)
     launches.update((k, forced_launches[k]) for k in FORCED_KERNELS)
     run_forced_combinations(st, workloads, scores)
@@ -1154,8 +1227,9 @@ def main(argv) -> int:
          "launches": launches[name], "library_ms": None, **summary[name]}
         for name, (src, tpu) in KERNELS.items()
     ]
-    kernels[list(KERNELS).index("lev_jaro_fused")].update(
-        {f"launches_{k.split('.')[1]}": launches[k] for k in VARIANTS})
+    for k in VARIANTS:
+        kernel, variant = k.split(".")
+        kernels[list(KERNELS).index(kernel)][f"launches_{variant}"] = launches[k]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,24 @@
-// Four A/B probes of the jaro scan K2 (jaro_scan.cu), K12-K15: one kernel
-// template on K2's lane groups (lanes.cuh), cut or changed by `P`.
+// Four A/B probes of the jaro scan K2 (jaro_scan.cu), K12-K15: K12-K14 one
+// kernel template on K2's lane groups (lanes.cuh), cut or changed by `P`;
+// K15 K2's own kernel (jaro_body.cuh) cut by its mode.
 //
 // Replaces the TPU probes of tools/ (each file's kernel and wrapper):
 //   K12 ab_jaro_pallas.py  _scan_kernel :59          P = kFlags
 //   K13 ab_jaro_wide.py    _kernel_wide :38          P = kPackedT
 //   K14 ab_jaro_wide2.py   _kernel_wide_clipped :56  P = kClipWarp, kClipRow
-//   K15 ab_jaro_sol_probe.py _ablated_kernel :62     P = kModeFull .. kModeEqbOnly
+//   K15 ab_jaro_sol_probe.py _ablated_kernel :62     jaro_body.cuh, kJaroFull .. kJaroEqbOnly
 // Contract of the scan as in jaro_scan.cu and ops/jaro_cuda.py; every probe
 // writes raw stats (no len-1/len-1 patch: those rows have an empty window,
 // m = t = 0), the wrappers in probes/jaro.py patch K12's and K13's, as the
 // TPU wrappers do.
 //
 // What bounds them on this card is K2's: the instructions and latency of a
-// step a char, not memory (at most 2 x 511 chars a row). The design is K2's: G
-// lanes a row pair, G the word count rounded up to a power of two; rows
-// staged once a warp; b's equality word for a_i from the per-row int8 table
-// or, on int32 tiles, by register compares; `take_first` flags the group's
-// first candidate. What each probe changes:
+// step a char, not memory (at most 2 x 511 chars a row). K12-K14 keep the
+// design K2 had before it moved to jaro_body.cuh: G lanes a row pair, G the
+// word count rounded up to a power of two; rows staged once a warp; b's
+// equality word for a_i from the per-row int8 table or, on int32 tiles, by
+// 32 register compares; `take_first` flags the group's first candidate.
+// What each probe changes:
 //   * K12 (G = 1, L <= 32): stops after the scan and stores m and the
 //     group's flag words, b's `flag` and a's `mat`, a word a lane at
 //     [row * G + lane] (coalesced: a warp's rows are neighbours); t is
@@ -31,15 +33,15 @@
 //     probe reduces them over its block), or with kClipRow outside its own
 //     row's window, skips its equality read and its candidate step (cand =
 //     0); `take_first` still runs on every lane.
-//   * K15: kModeFull is K2's body; kModeNoTcount leaves out the
-//     transposition count (t = the group's popcount of `mat`, which is m);
-//     kModeScanOnly also the `mat` bookkeeping (t = m); kModeEqbOnly only
-//     reads the equality words: m = t = the XOR of b's word for every
-//     a-position i < L, over the group.
+//   * K15: K2's kernel as jaro_scan.cu builds it, with its raw m: mode
+//     full the whole body; no_tcount leaves out the transposition count (t
+//     = m); scan_only also a's matched bits (t = m); eqb_only only reads the
+//     equality words: m = t = the XOR of b's word for every a-position i <
+//     L, over the group.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "lanes.cuh"
+#include "jaro_body.cuh"
 
 namespace strsim {
 namespace {
@@ -48,29 +50,17 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kMaxWords = 16;
 
-enum Probe : int {
-  kFlags, kPackedT, kClipWarp, kClipRow,                  // K12, K13, K14 (two clips)
-  kModeFull, kModeNoTcount, kModeScanOnly, kModeEqbOnly,  // K15's modes
-};
+enum Probe : int { kFlags, kPackedT, kClipWarp, kClipRow };  // K12, K13, K14 (two clips)
 
 // the group sizes each probe is built for
-constexpr bool builds(int P, int G) {
-  return P == kFlags ? G == 1 : (P == kPackedT || P == kClipWarp || P == kClipRow) ? G >= 4 : true;
-}
+constexpr bool builds(int P, int G) { return P == kFlags ? G == 1 : G >= 4; }
 
-// shared memory of one warp, as jaro_scan.cu: the int8 equality table
+// shared memory of one warp: the int8 equality table
 // (reused for the rank slots once the scan is done) or the int32 rank slots
 // (none at G <= 2), then its staged rows
 template <typename T, int G>
 __host__ __device__ constexpr int warp_bytes(int L) {
   return (lane_table<T> ? kTableBytes : kRankSlotBytes<G>) + stage_bytes<T>(kWarp / G, L);
-}
-
-template <int G>
-__device__ __forceinline__ uint32_t group_xor(uint32_t v) {
-#pragma unroll
-  for (int d = 1; d < G; d <<= 1) v ^= __shfl_xor_sync(kFull, v, d, G);
-  return v;
 }
 
 // K13's t: the lanes write their matched a chars and flagged b chars in rank
@@ -138,75 +128,58 @@ __global__ void __launch_bounds__(kThreads)
   const int base = 32 * g.lane;  // b- and a-positions of this lane's word
   const int own = min(max(nb - base, 0), 32);
   const LaneEq<T> eq(table_words, wl, sb + base, own);
+  const int steps = g.warp_max(i_end);
+  int bound_max = 0, nb_max = 0;  // K14: the warp's window union
+  if constexpr (P == kClipWarp) {
+    bound_max = (int)__reduce_max_sync(kFull, (unsigned)max(bound, 0));
+    nb_max = (int)__reduce_max_sync(kFull, (unsigned)nb);
+  }
+  // does this lane's word meet the window at a-position i?
+  const auto meets = [&](int i) {
+    if constexpr (P == kClipWarp)
+      return base <= min(i + bound_max, nb_max - 1) && base + 32 > i - bound_max;
+    else if constexpr (P == kClipRow)
+      return i < i_end && base <= min(i + bound, nb - 1) && base + 32 > i - bound;
+    else
+      return true;
+  };
 
-  if constexpr (P == kModeEqbOnly) {
-    uint32_t acc = 0u;
-    for (int i = 0; i < L; ++i) acc ^= eq(sa[i]);
-    acc = group_xor<G>(acc);
-    if (live && g.lane == 0) out0[r] = out1[r] = (int)acc;
-    return;
+  uint32_t flag = 0u, mat = 0u;
+  int m = 0;
+  uint32_t e_next = meets(0) ? eq(sa[0]) : 0u;
+  for (int i = 0; i < steps; ++i) {
+    const uint32_t e = e_next;
+    const bool on = meets(i) && (G == 1 || i < i_end);
+    // the next step's word, read ahead
+    e_next = meets(i + 1) ? eq(sa[max(min(i + 1, i_end - 1), 0)]) : 0u;
+    uint32_t cand = 0u;
+    if (on) {
+      const int lo = max(i - bound, 0) - base;
+      const int hi = min(i + bound, nb - 1) - base;
+      cand = e & ones_from(lo) & ~ones_from(hi + 1) & ~flag;
+    }
+    if (take_first(g, cand, flag)) {  // the first match
+      if (g.lane == (i >> 5)) mat |= 1u << (i & 31);
+      ++m;
+    }
+  }
+
+  if constexpr (P == kFlags) {
+    if (live) {
+      out1[r * G + g.lane] = (int)flag;
+      out2[r * G + g.lane] = (int)mat;
+      if (g.lane == 0) out0[r] = m;
+    }
   } else {
-    const int steps = g.warp_max(i_end);
-    int bound_max = 0, nb_max = 0;  // K14: the warp's window union
-    if constexpr (P == kClipWarp) {
-      bound_max = (int)__reduce_max_sync(kFull, (unsigned)max(bound, 0));
-      nb_max = (int)__reduce_max_sync(kFull, (unsigned)nb);
-    }
-    // does this lane's word meet the window at a-position i?
-    const auto meets = [&](int i) {
-      if constexpr (P == kClipWarp)
-        return base <= min(i + bound_max, nb_max - 1) && base + 32 > i - bound_max;
-      else if constexpr (P == kClipRow)
-        return i < i_end && base <= min(i + bound, nb - 1) && base + 32 > i - bound;
-      else
-        return true;
-    };
-
-    uint32_t flag = 0u, mat = 0u;
-    int m = 0;
-    uint32_t e_next = meets(0) ? eq(sa[0]) : 0u;
-    for (int i = 0; i < steps; ++i) {
-      const uint32_t e = e_next;
-      const bool on = meets(i) && (G == 1 || i < i_end);
-      // the next step's word, read ahead
-      e_next = meets(i + 1) ? eq(sa[max(min(i + 1, i_end - 1), 0)]) : 0u;
-      uint32_t cand = 0u;
-      if (on) {
-        const int lo = max(i - bound, 0) - base;
-        const int hi = min(i + bound, nb - 1) - base;
-        cand = e & ones_from(lo) & ~ones_from(hi + 1) & ~flag;
-      }
-      if (take_first(g, cand, flag)) {  // the first match
-        if constexpr (P != kModeScanOnly) {
-          if (g.lane == (i >> 5)) mat |= 1u << (i & 31);
-        }
-        ++m;
-      }
-    }
-
-    if constexpr (P == kFlags) {
-      if (live) {
-        out1[r * G + g.lane] = (int)flag;
-        out2[r * G + g.lane] = (int)mat;
-        if (g.lane == 0) out0[r] = m;
-      }
-    } else {
-      int t;
-      if constexpr (P == kModeScanOnly) {
-        t = m;
-      } else if constexpr (P == kModeNoTcount) {
-        t = g.sum(__popc(mat));
-      } else {
-        g.sync();  // the table's last reads are done: the rank slots overlay it
-        if constexpr (P == kPackedT)
-          t = packed_transpositions(g, table_words, sa, sb, mat, flag, m);
-        else
-          t = jaro_transpositions(g, table_words, sa, sb, mat, flag, m);
-      }
-      if (live && g.lane == 0) {
-        out0[r] = m;
-        out1[r] = t;
-      }
+    g.sync();  // the table's last reads are done: the rank slots overlay it
+    int t;
+    if constexpr (P == kPackedT)
+      t = packed_transpositions(g, table_words, sa, sb, mat, flag, m);
+    else
+      t = jaro_transpositions(g, table_words, sa, sb, mat, flag, m);
+    if (live && g.lane == 0) {
+      out0[r] = m;
+      out1[r] = t;
     }
   }
 }
@@ -301,22 +274,22 @@ extern "C" int strsim_probe_jaro_clipped(const void* a, const void* b, long long
   return (int)cudaErrorInvalidValue;
 }
 
-// K15: raw m, t of K2's body cut by mode 0 full, 1 no_tcount, 2 scan_only,
-// 3 eqb_only.
+// K15: raw m, t of K2's kernel (jaro_body.cuh) cut by mode 0 full, 1
+// no_tcount, 2 scan_only, 3 eqb_only; elem_bytes 1 (int8) or 4 (int32).
 extern "C" int strsim_probe_jaro_ablated(const void* a, const void* b, long long stride_a,
                                          long long stride_b, const void* len_a, const void* len_b,
                                          void* m_out, void* t_out, int n, int L, int elem_bytes,
                                          int mode, void* stream) {
   using namespace strsim;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const JaroLaunch f{a, b, stride_a, stride_b, static_cast<const int*>(len_a),
+                     static_cast<const int*>(len_b), static_cast<int*>(m_out),
+                     static_cast<int*>(t_out), nullptr, n, L, static_cast<cudaStream_t>(stream)};
   switch (mode) {
-    case 0: return launch<kModeFull>(a, b, stride_a, stride_b, len_a, len_b, m_out, t_out, nullptr,
-                                 n, L, elem_bytes, stream);
-    case 1: return launch<kModeNoTcount>(a, b, stride_a, stride_b, len_a, len_b, m_out, t_out,
-                                     nullptr, n, L, elem_bytes, stream);
-    case 2: return launch<kModeScanOnly>(a, b, stride_a, stride_b, len_a, len_b, m_out, t_out,
-                                     nullptr, n, L, elem_bytes, stream);
-    case 3: return launch<kModeEqbOnly>(a, b, stride_a, stride_b, len_a, len_b, m_out, t_out,
-                                    nullptr, n, L, elem_bytes, stream);
+    case 0: return (int)jaro_select_elem<kJaroFull, false>(elem_bytes, L, f);
+    case 1: return (int)jaro_select_elem<kJaroNoTcount, false>(elem_bytes, L, f);
+    case 2: return (int)jaro_select_elem<kJaroScanOnly, false>(elem_bytes, L, f);
+    case 3: return (int)jaro_select_elem<kJaroEqbOnly, false>(elem_bytes, L, f);
     default: return (int)cudaErrorInvalidValue;
   }
 }

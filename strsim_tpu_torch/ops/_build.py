@@ -66,7 +66,8 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
     ),
     "jaro_scan": (
         "jaro_scan.cu",
-        {"strsim_jaro_scan": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P]},
+        {"strsim_jaro_scan": [_P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+         "strsim_jaro_scan_residency": [_I, _I, _I, _P]},
     ),
     "multiset": (
         "multiset.cu",
@@ -134,6 +135,7 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], object] = {}  # (library, C function) -> the bound function
 _launches: Dict[str, int] = {}
 
 
@@ -208,6 +210,7 @@ def library(name: str) -> ctypes.CDLL:
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
+                _functions[(name, fn)] = f
             _loaded[name] = lib
         return lib
 
@@ -246,10 +249,20 @@ def check_tiles(a, b, len_a, len_b, max_width: int, dtypes) -> bool:
 def call(lib_name: str, fn_name: str, counts: Tuple[str, ...], device, *args) -> None:
     """Call C function `fn_name` of library `lib_name` as fn(*args, stream)
     on `device`'s current stream. Raises if it returned a CUDA error; adds
-    one to each launch count in `counts` otherwise."""
-    fn = getattr(library(lib_name), fn_name)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    one to each launch count in `counts` otherwise. The function is bound
+    once, when its library loads; the current device and the stream's
+    handle are torch's raw reads (no Stream object is built), and the device
+    guard is entered only when `device` is not the current device."""
+    fn = _functions.get((lib_name, fn_name))
+    if fn is None:
+        library(lib_name)
+        fn = _functions[(lib_name, fn_name)]
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: cudaError_t {rc}")
     for key in counts:

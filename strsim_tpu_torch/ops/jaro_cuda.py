@@ -1,7 +1,10 @@
-"""Jaro match statistics (m, t): greedy windowed match and transpositions.
+"""Jaro match statistics (m, t): greedy windowed match and transpositions,
+and, when asked, the common prefix that jaro_winkler reads.
 
-`jaro_match_stats` launches the hand-written CUDA kernel (csrc/jaro_scan.cu)
-on CUDA tiles and runs `jaro_plain` on CPU tiles. `jaro_plain` is the greedy
+`jaro_match_stats` launches the hand-written CUDA kernel (csrc/jaro_scan.cu,
+its kernel in csrc/jaro_body.cuh) on CUDA tiles and runs `jaro_plain` on CPU
+tiles; `with_prefix=True` adds the prefix to the same launch (the plain form:
+`stats.shared_prefix_length`). `jaro_plain` is the greedy
 scan in plain torch, the counterpart of
 `strsim_tpu/ops/jaro_bitmask.py:jaro_match_stats_bitmask`; the pipeline also
 uses it on CUDA for extend buckets wider than the kernel's 512. Its parts,
@@ -18,7 +21,7 @@ Exact for every codepoint on int8 and int32 tiles.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -32,25 +35,50 @@ def supports_width(width: int) -> bool:
     return width <= MAX_WIDTH
 
 
-def jaro_match_stats(a, b, len_a, len_b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """([B] m, [B] t) int32; a, b: [B, L] int8/int32 tiles (rows may be column
-    slices of a packed tile), len_a, len_b: [B] int32, L <= 512."""
+def jaro_match_stats(a, b, len_a, len_b, with_prefix: bool = False) -> Tuple[torch.Tensor, ...]:
+    """([B] m, [B] t), or (m, t, prefix) with `with_prefix`, int32; a, b:
+    [B, L] int8/int32 tiles (rows may be column slices of a packed tile),
+    len_a, len_b: [B] int32, L <= 512. Launch counts: "jaro_scan", and
+    "jaro_scan.prefix" with the prefix."""
     if not _build.check_tiles(a, b, len_a, len_b, MAX_WIDTH, _DTYPES):
-        return jaro_plain(a, b, len_a, len_b)
+        return jaro_plain(a, b, len_a, len_b, with_prefix)
     m = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
     t = torch.empty_like(m)
-    _build.launch("jaro_scan", "strsim_jaro_scan", ("jaro_scan",),
-                  a, b, len_a, len_b, (m, t), a.element_size())
-    return m, t
+    prefix = torch.empty_like(m) if with_prefix else None
+    _build.launch("jaro_scan", "strsim_jaro_scan",
+                  ("jaro_scan", "jaro_scan.prefix") if with_prefix else ("jaro_scan",),
+                  a, b, len_a, len_b, (m, t, prefix), a.element_size())
+    return (m, t, prefix) if with_prefix else (m, t)
 
 
-def jaro_plain(a, b, len_a, len_b) -> Tuple[torch.Tensor, torch.Tensor]:
+def residency(width: int, dtype: torch.dtype, with_prefix: bool = False) -> Dict[str, int]:
+    """What the card gives K2's launch at this tile width and dtype: the
+    blocks an SM holds (the occupancy calculator at the launch's dynamic
+    shared memory), registers and local memory bytes a thread, and the
+    dynamic shared memory a block."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    rc = _build.library("jaro_scan").strsim_jaro_scan_residency(
+        width, torch.empty((), dtype=dtype).element_size(), int(with_prefix), out)
+    if rc != 0:
+        raise RuntimeError(f"strsim_jaro_scan_residency failed: cudaError_t {rc}")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "smem_bytes"), out))
+
+
+def jaro_plain(a, b, len_a, len_b, with_prefix: bool = False) -> Tuple[torch.Tensor, ...]:
     """Plain torch (m, t) on any device: `greedy_scan`, `transposition_count`
     and the len-1/len-1 patch, the steps of
-    strsim_tpu/ops/jaro_pallas.py:jaro_match_stats_pallas."""
+    strsim_tpu/ops/jaro_pallas.py:jaro_match_stats_pallas; with
+    `with_prefix`, (m, t, stats.shared_prefix_length)."""
     m, matched, flagged = greedy_scan(a, b, len_a, len_b)
     t = transposition_count(a, b, matched, flagged)
-    return patch_one_one(a, b, len_a, len_b, m, t)
+    m, t = patch_one_one(a, b, len_a, len_b, m, t)
+    if not with_prefix:
+        return m, t
+    from strsim_tpu_torch.ops.stats import shared_prefix_length  # stats imports this module
+
+    return m, t, shared_prefix_length(a, b)
 
 
 def greedy_scan(a, b, len_a, len_b) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

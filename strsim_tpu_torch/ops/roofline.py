@@ -105,6 +105,8 @@ def work_ops(name: str, flags: dict, la, lb) -> float:
     elif name == "jaro_scan":  # b's equality words, a-position by a-position
         steps, win = _jaro_window(la, lb)
         ops = _peq(lb, steps, win) + JARO_OPS * win * steps
+        if flags.get("with_prefix", False):
+            ops = ops + np.minimum(np.minimum(la, lb), 4)  # the capped prefix
     elif name in ("multiset_rank", "multiset_hist"):
         ops = 2 * (la + lb)
     elif name in ("lev_jaro_fused", "fused_lev_jaro"):  # one lookup feeds every step
@@ -156,6 +158,8 @@ def route_flags(kernel: str, routes: dict) -> dict:
         return {"with_inter": "inter" in on, "with_osa": deep, "with_lcs": deep}
     if kernel == "dp_fused":
         return {"with_lev": "lev_d" in on, "with_osa": "osa_d" in on, "with_lcs": "lcs_len" in on}
+    if kernel == "jaro_scan" and "prefix" in on:
+        return {"with_prefix": True}
     return {}
 
 

@@ -36,11 +36,13 @@ replaced by its CUDA counterpart and each XLA form by plain torch. In order:
                      widths <= 512 (:380-417)
   K1 levenshtein_myers   lev_d under "pallas_scan", widths <= 512
   K10 levenshtein_wavefront  lev_d under "pallas", widths <= 512
-  K2 jaro_scan       jaro_m, jaro_t under every jaro value but "pallas",
-                     widths <= 512, int8 and int32 (the JAX engine's XLA
-                     bitmask and scan forms included: K2 is exact for every
-                     codepoint, where the JAX Pallas kernel's slot packing
-                     has a codepoint contract)
+  K2 jaro_scan       jaro_m, jaro_t and prefix under every jaro value but
+                     "pallas", widths <= 512, int8 and int32 (the JAX
+                     engine's XLA bitmask and scan forms included: K2 is
+                     exact for every codepoint, where the JAX Pallas
+                     kernel's slot packing has a codepoint contract; the
+                     JAX engine computes the prefix beside it in XLA, the
+                     port in the same launch)
   K9 jaro_flags      jaro_m, jaro_t under "pallas", widths <= 512
   K3 multiset_rank   inter under "pallas_scan", widths <= 64; K4
                      multiset_hist under "pallas_hist", int8, widths <= 512
@@ -94,11 +96,11 @@ STAT_FIELDS = {
 
 
 def shared_prefix_length(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Common prefix length capped at 4 chars (strsim.rs:261-266). Pads differ
-    between sides, so positions past either length compare unequal."""
+    """Common prefix length capped at 4 chars (strsim.rs:261-266): the sum of
+    the running AND of the first min(L, 4) compares. Pads differ between
+    sides, so positions past either length compare unequal."""
     k = min(a.shape[1], 4)
-    eq = (a[:, :k] == b[:, :k]).to(torch.int32)
-    return torch.cumprod(eq, dim=1).sum(1).to(torch.int32)
+    return (a[:, :k] == b[:, :k]).cummin(1).values.sum(1, dtype=torch.int32)
 
 
 def row_equal(a, b, len_a, len_b) -> torch.Tensor:
@@ -182,6 +184,7 @@ def stat_routes(measures: Tuple[str, ...], width: int, dtype: torch.dtype,
     single = {
         "lev_d": lev,
         "jaro_m": jaro,
+        "prefix": "jaro_scan" if jaro == "jaro_scan" else "plain",
         "inter": multiset_route(width, dtype, impl["multiset"]),
         "osa_d": "osa_scan" if scan["osa_d"] and osa_cuda.supports_width(width) else "plain",
     }
@@ -210,7 +213,6 @@ _PLAIN = {
 _KERNELS = {
     "levenshtein_myers": (("lev_d",), levenshtein_cuda.levenshtein_distance),
     "levenshtein_wavefront": (("lev_d",), levenshtein_wavefront_cuda.levenshtein_distance),
-    "jaro_scan": (("jaro_m", "jaro_t"), jaro_cuda.jaro_match_stats),
     "jaro_flags": (("jaro_m", "jaro_t"), jaro_flags_cuda.jaro_match_stats),
     "multiset_rank": (("inter",), multiset_cuda.multiset_intersection_rank),
     "multiset_hist": (("inter",), multiset_cuda.multiset_intersection_hist),
@@ -241,6 +243,10 @@ def compute_stats(
             flags = dict(with_inter="inter" in mine, with_osa="osa_d" in mine,
                          with_lcs="lcs_len" in mine)
             names, res = lev_jaro_cuda.fields(**flags), lev_jaro_cuda.lev_jaro_stats(*args, **flags)
+        elif route == "jaro_scan":
+            with_prefix = "prefix" in mine
+            names = ("jaro_m", "jaro_t", "prefix") if with_prefix else ("jaro_m", "jaro_t")
+            res = jaro_cuda.jaro_match_stats(*args, with_prefix=with_prefix)
         elif route == "dp_fused":
             flags = ("lev_d" in mine, "osa_d" in mine, "lcs_len" in mine)
             names, res = dp_fused_cuda.fields(*flags), dp_fused_cuda.dp_fused_stats(*args, *flags)

@@ -17,8 +17,9 @@ from strsim_tpu_torch.ops import _build
 
 def warm(x: torch.Tensor) -> torch.Tensor:
     """x * 2 + 1 (int32, wrapping) by the CUDA kernel; x: contiguous int32
-    on a CUDA device."""
-    if x.device.type != "cuda":
+    on a CUDA device, at any offset (16-byte accesses where x and the
+    output share their offset from a 16-byte boundary)."""
+    if not x.is_cuda:
         raise ValueError(f"warm launches the CUDA kernel K11 and takes CUDA tensors only; "
                          f"x lies on {x.device}")
     if x.dtype != torch.int32 or not x.is_contiguous():

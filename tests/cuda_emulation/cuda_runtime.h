@@ -39,8 +39,13 @@ struct emu_uint3 {
 };
 inline thread_local emu_uint3 threadIdx;
 inline thread_local emu_uint3 blockIdx;
+inline thread_local emu_uint3 blockDim;
+inline thread_local emu_uint3 gridDim;
 struct uint4 {
   unsigned x, y, z, w;
+};
+struct alignas(16) int4 {
+  int x, y, z, w;
 };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 using std::max;
@@ -48,11 +53,58 @@ using std::min;
 inline long long min(long long a, long long b) { return a < b ? a : b; }
 
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9,
+  cudaSharedmemCarveoutMaxShared = 100,
+  cudaDevAttrMultiProcessorCount = 16,
+};
 typedef void* cudaStream_t;
+// The current device, and each kernel's dynamic shared memory limit on each
+// device, which cudaFuncSetAttribute sets for the current device only, as
+// on a card: a launch past its device's limit (48 KB where none was set)
+// fails with cudaErrorInvalidValue, which cudaGetLastError then returns.
+inline int emu_device = 0;
+inline std::map<std::pair<int, const void*>, int> emu_dynamic_smem_limit;
+inline cudaError_t emu_last_error = cudaSuccess;
+extern "C" __attribute__((weak)) void emu_set_device(int device) { emu_device = device; }
 template <class F>
-cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+cudaError_t cudaFuncSetAttribute(F kernel, int attr, int value) {
+  if (attr == cudaFuncAttributeMaxDynamicSharedMemorySize)
+    emu_dynamic_smem_limit[{emu_device, (const void*)kernel}] = value;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t err = emu_last_error;
+  emu_last_error = cudaSuccess;
+  return err;
+}
+// the launch's residency: the emulation runs one block at a time
+struct cudaFuncAttributes {
+  int numRegs = 0;
+  size_t localSizeBytes = 0;
+};
+template <class F>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* attr, F) {
+  *attr = cudaFuncAttributes();
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
+// a card of two SMs, so that a grid sized by SMs still has several blocks
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = emu_device;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, int attr, int) {
+  *value = attr == cudaDevAttrMultiProcessorCount ? 2 : 0;
+  return cudaSuccess;
+}
 
 // --- one block at a time ----------------------------------------------------
 
@@ -175,11 +227,18 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p
 inline unsigned char* emu_smem() { return emu_block->smem; }
 
 // kernel<<<grid, threads, smem_bytes, stream>>>(...) becomes
-// emu_launch(grid, threads, smem_bytes, stream, [&] { kernel(...); });
+// emu_launch(grid, threads, smem_bytes, stream, kernel, [&] { kernel(...); });
 // shared memory starts as 0xAB bytes, so a read of what was never written
 // shows up as a wrong result.
-template <class F>
-void emu_launch(int grid, int threads, int smem_bytes, void*, F kernel) {
+template <class K, class F>
+void emu_launch(int grid, int threads, int smem_bytes, void*, K kernel_fn, F kernel) {
+  if (smem_bytes > 48 * 1024) {
+    const auto limit = emu_dynamic_smem_limit.find({emu_device, (const void*)kernel_fn});
+    if (limit == emu_dynamic_smem_limit.end() || limit->second < smem_bytes) {
+      emu_last_error = cudaErrorInvalidValue;
+      return;
+    }
+  }
   for (int bx = 0; bx < grid; ++bx) {
     EmuBlock block;
     for (auto& e : block.exited) e = 0u;
@@ -191,6 +250,8 @@ void emu_launch(int grid, int threads, int smem_bytes, void*, F kernel) {
       lanes.emplace_back([&, t] {
         threadIdx.x = t;
         blockIdx.x = bx;
+        blockDim.x = threads;
+        gridDim.x = grid;
         kernel();
         block.exited[t >> 5] |= 1u << (t & 31);
       });

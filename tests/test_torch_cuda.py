@@ -56,6 +56,9 @@ CASES = [
                  (7, 31, 63, 95, 511), (np.int8, np.int32), id="levenshtein_myers"),
     pytest.param(jaro_cuda.jaro_match_stats, jaro_cuda.jaro_plain,
                  (7, 31, 63, 95, 511), (np.int8, np.int32), id="jaro_scan"),
+    pytest.param(partial(jaro_cuda.jaro_match_stats, with_prefix=True),
+                 partial(jaro_cuda.jaro_plain, with_prefix=True),
+                 (7, 15, 31, 63, 95, 511), (np.int8, np.int32), id="jaro_scan_prefix"),
     pytest.param(multiset_cuda.multiset_intersection_rank, multiset_cuda.rank_plain,
                  (7, 31, 63), (np.int8, np.int32), id="multiset_rank"),
     pytest.param(multiset_cuda.multiset_intersection_hist, multiset_cuda.hist_plain,
@@ -217,6 +220,47 @@ def test_warm_matches_plain(device):
         x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape).astype(np.int32)).to(device)
         assert torch.equal(warm(x), warm_plain(x)), shape
     assert _build.launch_counts() == {"warm": 3}
+
+
+@pytest.mark.parametrize("shape,skip", [((1021,), 0), ((3,), 0), ((4096, 128), 1), ((4096, 128), 3),
+                                        ((1,), 0)])
+def test_warm_matches_plain_at_odd_shapes(device, shape, skip):
+    """K11 on n % 4 != 0, n < 4 and offset views (the flattened tensor from
+    its `skip`-th element), one launch counted a call."""
+    from strsim_tpu_torch.ops.warm_cuda import warm, warm_plain
+
+    rng = np.random.default_rng(5)
+    whole = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape).astype(np.int32)).to(device)
+    x = whole.view(-1)[skip:]
+    _build.reset_launch_counts()
+    assert torch.equal(warm(x), warm_plain(x))
+    assert _build.launch_counts() == {"warm": 1}
+
+
+def test_jaro_scan_counts_its_prefix_launches(device):
+    args = packed_tiles(9, 3000, 95, np.int8, device)
+    _build.reset_launch_counts()
+    jaro_cuda.jaro_match_stats(*args)
+    jaro_cuda.jaro_match_stats(*args, with_prefix=True)
+    assert _build.launch_counts() == {"jaro_scan": 2, "jaro_scan.prefix": 1}
+    res = jaro_cuda.residency(95, torch.int8)
+    assert res["blocks_per_sm"] >= 1 and res["local_bytes"] == 0
+
+
+def test_jaro_scan_launches_on_a_second_device():
+    """K2's int8 table builds take more than 48 KB of dynamic shared memory,
+    an attribute of each device's context: after launches on cuda:0, K2
+    launches on cuda:1, then on cuda:0 again, and agrees with its plain
+    version on each."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for index in (0, 1, 0):
+        for dtype in (np.int8, np.int32):
+            args = packed_tiles(13, 3000, 255, dtype, torch.device("cuda", index))
+            with torch.cuda.device(0):  # the wrapper enters cuda:1's guard itself
+                got = jaro_cuda.jaro_match_stats(*args, with_prefix=True)
+            want = jaro_cuda.jaro_plain(*args, with_prefix=True)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (index, dtype)
 
 
 def test_native_paths_on_the_card_match_numpy(device):

@@ -48,7 +48,7 @@ def _for_the_cpu(source: str) -> str:
     the emulation's terms."""
     source = source.replace("extern __shared__ __align__(16) unsigned char smem[];",
                             "unsigned char* smem = emu_smem();")
-    return re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\2, [&] { \1(\3); });", source,
+    return re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\2, \1, [&] { \1(\3); });", source,
                   flags=re.S)
 
 
@@ -115,10 +115,10 @@ def _check(emulated, a, b, la, lb):
         want = dp_fused_cuda.dp_fused_plain(a, b, la, lb, *flags)
         for g, w in zip((o for o in outs if o is not None), want):
             assert torch.equal(g, w), flags
-    m, t = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32)
-    _launch(emulated["jaro_scan"], "strsim_jaro_scan", a, b, la, lb, (m, t))
-    want_m, want_t = jaro_cuda.jaro_plain(a, b, la, lb)
-    assert torch.equal(m, want_m) and torch.equal(t, want_t)
+    m, t, prefix = (torch.empty(n, dtype=torch.int32) for _ in range(3))
+    _launch(emulated["jaro_scan"], "strsim_jaro_scan", a, b, la, lb, (m, t, prefix))
+    want_m, want_t, want_prefix = jaro_cuda.jaro_plain(a, b, la, lb, with_prefix=True)
+    assert torch.equal(m, want_m) and torch.equal(t, want_t) and torch.equal(prefix, want_prefix)
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "separate"])

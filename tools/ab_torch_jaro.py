@@ -6,6 +6,7 @@ ab_jaro_wide2.py and ab_jaro_sol_probe.py.
     python3 tools/ab_torch_jaro.py                           # all four, full size
     python3 tools/ab_torch_jaro.py --probes sol,wide2        # some of them
     python3 tools/ab_torch_jaro.py --quick --trips 2,6       # one width a probe
+    python3 tools/ab_torch_jaro.py --probes sol --ladder     # K15 at every ladder width
     python3 tools/ab_torch_jaro.py --device cpu              # flow smoke on the CPU
 
 Probes, named after the TPU tools they port (`strsim_tpu_torch/probes/jaro.py`):
@@ -19,9 +20,13 @@ Probes, named after the TPU tools they port (`strsim_tpu_torch/probes/jaro.py`):
           row's own window); w191, w383, w511, int8 and int32; the long side
           in [3L/4, L], the short side in 2..L, swapped half the time, seed
           23 over the widths in turn;
-  sol     K15 in its four modes (full, no_tcount, scan_only, eqb_only); L =
-          15 and 31 with lengths L-7..L (seed 7), then w63, w255, w511 on
-          wide2's lengths, and w511 on int32.
+  sol     K15, K2's own kernel (csrc/jaro_body.cuh) in its four modes
+          (full, no_tcount, scan_only, eqb_only); L = 15 and 31 with lengths
+          L-7..L (seed 7), then w63, w255, w511 on wide2's lengths, and w511
+          on int32; with --ladder at every width of the bucket ladder on
+          int8 and int32 (the sol lengths up to w31, wide2's above), each
+          case with K2's residency (blocks an SM, registers, local and
+          shared memory).
 Every generator pads past the lengths (-1 / -2) as the port's encoder does.
 Rows: 65,536 a block; the TPU runs used 262,144 at w7..w31, a cut listed
 under "reduced". `--quick`: one width a probe (w15, w255, w383, w31).
@@ -34,10 +39,7 @@ time a call (utils/devicetime.py:marginal_block_time, `--trips C1,C2` fixes
 its two trip counts) of K2 and of each arm on the same tiles: ms, K2 / arm,
 ns a pair, the bound (ops/roofline.py: K2's, with K12's two flag words
 added to its bytes; K15's eqb_only its own) and the share bound / time. pallas and wide also time
-their kernel alone (no t outside it, no patch) beside the arm; wide and
-wide2 also K15 "full", K2's body built in the probes' source, and each arm
-against it (k15_full_over_arm), which separates a probe's change from what
-that build does to K2's body. sol gives
+their kernel alone (no t outside it, no patch) beside the arm. sol gives
 the attribution of the TPU probe: eqb_build = eqb_only, greedy_chain =
 scan_only - eqb_only, a_compaction = no_tcount - scan_only,
 b_compaction_and_t = full - no_tcount, each also as a share of full.
@@ -61,6 +63,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+from chip_smoke import LADDER  # noqa: E402  (the bucket ladder)
 
 PROBES = ("pallas", "wide", "wide2", "sol")
 TPU_TOOLS = {"pallas": "tools/ab_jaro_pallas.py", "wide": "tools/ab_jaro_wide.py",
@@ -73,6 +76,8 @@ CASES = {
     "sol": [(15, "int8", "sol"), (31, "int8", "sol"), (63, "int8", "wide2"),
             (255, "int8", "wide2"), (511, "int8", "wide2"), (511, "int32", "wide2")],
 }
+# --ladder: sol at every width of the bucket ladder on both dtypes
+LADDER_SOL = [(w, d, "sol" if w <= 31 else "wide2") for w in LADDER for d in ("int8", "int32")]
 QUICK = {"pallas": 15, "wide": 255, "wide2": 383, "sol": 31}
 SEEDS = {"pallas": 0, "wide": 0, "wide2": 23, "sol": 7}
 ROWS = 65536
@@ -87,6 +92,8 @@ def _parse(argv):
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--quick", action="store_true")
     p.add_argument("--trips", default=None, help="C1,C2: marginal_block_time's two trip counts")
+    p.add_argument("--ladder", action="store_true",
+                   help="sol at every ladder width on int8 and int32, with K2's residency")
     p.add_argument("--out", default=str(REPO / "chiprun_out" / "ab_torch_jaro.json"))
     args = p.parse_args(argv)
     args.probes = args.probes.split(",")
@@ -177,22 +184,17 @@ def run_case(probe, width, dtype, lengths, rng, args, device, timer, clock_hz) -
     arms, arm_flags = {}, {}  # name -> the callable timed, its flags for the bound
     kernel = {"pallas": "jaro_flags_probe", "wide": "jaro_packed_t", "wide2": "jaro_clipped",
               "sol": "jaro_ablated"}[probe]
-    # K15 "full" is K2's body built in the probes' unit: the baseline that
-    # separates a probe's change from what the unit's build does to K2
-    same_unit = lambda *t: probes.jaro_ablated(*t, mode="full")  # noqa: E731
     if probe == "pallas":
         _check_equal(label, probes.jaro_flags_probe(*tiles), k2, lens)
         arms = {"probe": probes.jaro_flags_probe, "kernel": probes.jaro_flags_scan}
     elif probe == "wide":
         _check_equal(label, probes.jaro_packed_t(*tiles), k2, lens)
-        arms = {"probe": probes.jaro_packed_t, "kernel": probes.packed_t_stats,
-                "k15_full": same_unit}
+        arms = {"probe": probes.jaro_packed_t, "kernel": probes.packed_t_stats}
     elif probe == "wide2":
         for clip in probes.CLIPS:
             fn = lambda *t, clip=clip: probes.jaro_clipped(*t, clip=clip)  # noqa: E731
             _check_equal(f"{label} clip={clip}", patched(fn)(*tiles), k2, lens)
             arms[f"clip_{clip}"] = fn
-        arms["k15_full"] = same_unit
     else:
         for mode in probes.MODES:
             fn = lambda *t, mode=mode: probes.jaro_ablated(*t, mode=mode)  # noqa: E731
@@ -218,10 +220,8 @@ def run_case(probe, width, dtype, lengths, rng, args, device, timer, clock_hz) -
            "arms": {name: _arm(timer(fn, tiles), k2_ms, args.rows,
                                arm_bound(arm_flags.get(name, {}))[0])
                     for name, fn in arms.items()}}
-    if "k15_full" in rec["arms"] and timer.on_card:
-        full_ms = rec["arms"]["k15_full"]["ms"]
-        for arm in rec["arms"].values():
-            arm["k15_full_over_arm"] = full_ms / arm["ms"]
+    if timer.on_card:
+        rec["k2"]["residency"] = jaro_cuda.residency(width, c.dtype)
     if probe == "sol" and timer.on_card:
         ms = {mode: rec["arms"][mode]["ms"] for mode in probes.MODES}
         parts = {"eqb_build": ms["eqb_only"], "greedy_chain": ms["scan_only"] - ms["eqb_only"],
@@ -241,6 +241,8 @@ def _line(rec) -> str:
                      for k, v in rec["arms"].items())
     out = (f"  {rec['probe']:6s} w{rec['width']:<3d} {rec['dtype']:5s} exact; K2 {f(rec['k2']['ms'])} "
            f"ms; {arms}; bound {f(rec['bound_ms'])} ms")
+    if "residency" in rec["k2"]:
+        out += "; K2 " + ", ".join(f"{k} {v}" for k, v in rec["k2"]["residency"].items())
     if "attribution_share_of_full" in rec:
         out += "; of full: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                          rec["attribution_share_of_full"].items())
@@ -268,7 +270,7 @@ def main(argv) -> int:
     records = []
     for probe in args.probes:
         rng = None
-        for width, dtype, lengths in CASES[probe]:
+        for width, dtype, lengths in (LADDER_SOL if args.ladder and probe == "sol" else CASES[probe]):
             if args.quick and width != QUICK[probe]:
                 continue
             if rng is None or probe in ("pallas", "wide"):  # a fresh seed a width there
