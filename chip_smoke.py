@@ -10,7 +10,10 @@ Phases, one line of findings each (any failure exits non-zero):
   2. build: every CUDA kernel from csrc/ (K11 csrc/warm.cu among them), one
      nvcc per source in parallel, and the native host library (g++), each
      build's time (each library's `-Xptxas -v` log to
-     chiprun_out/ptxas/<library>.log);
+     chiprun_out/ptxas/<library>.log), and each K9 and K10 instantiation's
+     registers, stack frame and spills (without --kernels, a K10
+     instantiation with a stack frame or a spill fails: its DP state belongs
+     in registers);
   3. kernels: each kernel against its plain torch version on the card, at the
      main path's shapes (65536-row blocks at each ladder width it serves, int8
      and int32 tiles, seeded inputs incl. astral codepoints and the rows of
@@ -27,7 +30,10 @@ Phases, one line of findings each (any failure exits non-zero):
      least time the card could take (`bound_ms`, from this run's lengths:
      strsim_tpu_torch/ops/roofline.py); for K5 also the time of the separate
      kernels it replaces;
-     K9 (its m and both flag tensors) and K10 at every width on both dtypes,
+     K9 (its m and both flag tensors; beside it the forced jaro route,
+     jaro_flags_cuda.jaro_match_stats, K9 with the plain transposition count
+     and patch) and K10 (beside its bound, K1's, the full DP's own floor:
+     roofline.dp_floor_ms) at every width on both dtypes,
      K4 at every width on int8 (a forced "pallas_hist" sends it narrow tiles);
      K11 (x * 2 + 1) on [8, 128] and [65536, 128] int32 over the whole int32
      range, on an offset view of the latter and on 3 and 1,021 elements,
@@ -66,7 +72,9 @@ Phases, one line of findings each (any failure exits non-zero):
      on 20,000 rows of each, all byte-identical to the default config's
      scores, each with its own launch counts: every kernel that stat_routes
      names for it on the buckets it formed must launch (K9 and K10 on the
-     forced path);
+     forced path); a second forced five pass on each workload records its
+     buckets, its host phases and each kernel's time a pass, K9's and K10's
+     by bucket (`pass_reckoning`);
      scores byte-identical to the pure-Python oracle on all fourteen
      measures for 20K rows of make_pairs, on the five for 20K rows of
      make_wide_pairs and on the nine extensions for 4K of them (the OSA and
@@ -96,6 +104,7 @@ Phases, one line of findings each (any failure exits non-zero):
      to chiprun_out/chip_smoke_kernels.jsonl.
 
 Imports neither jax nor strsim_tpu. Exits non-zero without a CUDA device.
+Stops and reaps every process it starts before it exits (`stop_children`).
 """
 from __future__ import annotations
 
@@ -214,6 +223,49 @@ DIFFERENTIAL = (
 
 # The card's peaks and each kernel's bound: strsim_tpu_torch/ops/roofline.py
 # (`bound`, `work_ops`, `card_line`, `max_sm_clock_hz`).
+
+
+def ptxas_kernels(log: str) -> list:
+    """[(kernel, registers, stack frame bytes, spill store bytes, spill load
+    bytes)] for every entry function in an `nvcc -Xptxas -v` log, names
+    demangled where the toolkit's cu++filt (or c++filt) is found."""
+    import shutil
+    import subprocess
+
+    found = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                          chunk)
+        found.append([name, int(regs.group(1)) if regs else 0,
+                      *(int(x) for x in (frame.groups() if frame else (0, 0, 0)))])
+    filt = shutil.which("cu++filt") or shutil.which("/usr/local/cuda/bin/cu++filt") or shutil.which("c++filt")
+    if filt and found:
+        done = subprocess.run([filt], input="\n".join(k[0] for k in found), capture_output=True,
+                              text=True)
+        names = done.stdout.splitlines()
+        if done.returncode == 0 and len(names) == len(found):
+            for k, name in zip(found, names):
+                for ns in ("strsim::(anonymous namespace)::", "strsim::<unnamed>::"):
+                    name = name.replace(ns, "")
+                name = name.replace("signed char", "int8").removeprefix("void ")
+                k[0] = name[:name.rfind(">(") + 1] or name  # the template, not the arguments
+    return [tuple(k) for k in found]
+
+
+def print_forced_ptxas(built: dict, strict: bool) -> None:
+    """Registers, stack frame and spills of each instantiation of K9 and K10
+    built here; if `strict`, every K10 instantiation must keep its DP state
+    in registers (no stack frame, no spill)."""
+    for name, kernel in (("jaro_flags", "K9"), ("levenshtein_wavefront", "K10")):
+        if name not in built:
+            continue
+        for fn, regs, frame, stores, loads in ptxas_kernels(built[name][1]):
+            print(f"  {kernel} {fn}: registers {regs}, stack frame {frame} B, spill stores "
+                  f"{stores} B, spill loads {loads} B", flush=True)
+            if strict and kernel == "K10" and frame + stores + loads:
+                raise AssertionError(f"K10 {fn}: {frame} B stack frame, {stores + loads} B spilled")
 
 
 def ptxas_summary(log: str) -> str:
@@ -654,6 +706,8 @@ def check_kernels(device, clock_hz: float, only=None):
 
     import torch
 
+    from strsim_tpu_torch.ops import jaro_flags_cuda
+    from strsim_tpu_torch.ops import roofline
     from strsim_tpu_torch.ops.roofline import bound
     from strsim_tpu_torch.ops.stats import shared_prefix_length
 
@@ -710,6 +764,12 @@ def check_kernels(device, clock_hz: float, only=None):
                     if name == "jaro_scan" and not flags:  # the route's time before the prefix moved
                         record["with_plain_prefix_ms"] = time_ms(
                             lambda: (kernel(*args), shared_prefix_length(*args[:2])), 5)
+                    # the full DP's own floor beside K1's bound (none in a tree from before it)
+                    if name == "levenshtein_wavefront" and hasattr(roofline, "dp_floor_ms"):
+                        record["dp_floor_ms"] = roofline.dp_floor_ms(lens, clock_hz)
+                    if name == "jaro_flags":  # the forced jaro route: K9, then t and the patch
+                        record["route_ms"] = time_ms(
+                            lambda: jaro_flags_cuda.jaro_match_stats(*args), 5)
                     cases.append(record)
                     launches.append((label, partial(kernel, *args)))
                     entry["ms"] += k_ms
@@ -736,6 +796,10 @@ def check_kernels(device, clock_hz: float, only=None):
                      if "separate_ms" in record else "")
             if "with_plain_prefix_ms" in record:
                 extra += f", with the plain prefix {record['with_plain_prefix_ms']:.4f} ms"
+            if "dp_floor_ms" in record:
+                extra += f", DP floor {record['dp_floor_ms']:.4f} ms"
+            if "route_ms" in record:
+                extra += f", route (jaro_match_stats) {record['route_ms']:.4f} ms"
             if "library_ms" in record:
                 extra += f", library (torch.add) {record['library_ms']:.4f} ms"
             print(f"  {case_label(record):42s} rows {record['rows']}: exact, kernel {record['ms']:.4f} ms "
@@ -895,14 +959,17 @@ def run_workloads(st, workloads) -> dict:
     return scores, five_metrics, all_metrics, jaccard_metrics, jaro_metrics
 
 
-def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
+def pass_reckoning(label, measures_label, measures, rm, cases, impls, by_bucket=()) -> None:
     """Print, kernel by kernel, what one pass of `measures` over the buckets
     of the run that filled RunMetrics `rm` would take on the card by this
     run's phase-3 times: the sum over its buckets of rows / BLOCK times the
     kernel's time (CUDA events, and its own device time), and bound at the
     bucket's width and tile dtype, for the outputs the router asks of it
     there (K6 at its three recurrences where phase 3 did not time that
-    subset). Largest gap between device time and bound first."""
+    subset). Largest gap between device time and bound first. The kernels
+    named in `by_bucket` also get one line a bucket (width, tile dtype,
+    rows, launches and the three times), so that launches x (time - bound)
+    reads from the pass's own buckets."""
     import torch
 
     from strsim_tpu_torch.ops.roofline import route_flags
@@ -924,6 +991,11 @@ def pass_reckoning(label, measures_label, measures, rm, cases, impls) -> None:
                                         "widths": []})
             for k in ("ms", "device_ms", "bound_ms"):
                 t[k] += bm.rows / BLOCK * r[k]
+            if kernel in by_bucket:
+                print(f"  per bucket, {label} {measures_label}: {kernel} w{bm.width} {bm.dtype} "
+                      f"{bm.rows} rows, {bm.device_calls} launches: {bm.rows / BLOCK * r['ms']:.4f} ms, "
+                      f"device {bm.rows / BLOCK * r['device_ms']:.4f} ms, bound "
+                      f"{bm.rows / BLOCK * r['bound_ms']:.4f} ms", flush=True)
             t["rows"] += bm.rows
             t["widths"].append(bm.width)
     for kernel, t in sorted(per.items(), key=lambda kv: kv[1]["bound_ms"] - kv[1]["device_ms"]):
@@ -1006,14 +1078,18 @@ def _same_scores(label, what, got: dict, want: dict, rows=slice(None)) -> None:
                                  f"at row {bad}: {v[bad]!r} against {want[m][rows][bad]!r}")
 
 
-def run_forced(st, workloads, scores, five_metrics) -> dict:
+def run_forced(st, workloads, scores, five_metrics, cases) -> dict:
     """The forced-implementation path: compute_many over the five measures
     with FORCED on every workload whole, byte-identical to the default
-    config's scores (`scores`, from run_workloads). Every kernel that the
-    router names for FORCED on the workloads' buckets (`five_metrics`, from
-    the default five-measure pass) must launch, K9 and K10 among them.
-    Returns the launch counts."""
+    config's scores (`scores`, from run_workloads), then a five pass with
+    FORCED that records its buckets (RunMetrics: host phases, and K9's and
+    K10's time a pass by bucket from phase 3's `cases`, `pass_reckoning`).
+    Every kernel that the router names for FORCED on the workloads' buckets
+    (`five_metrics`, from the default five-measure pass) must launch, K9 and
+    K10 among them. Returns the launch counts."""
+    from strsim_tpu_torch.models.pipeline import compute_scores
     from strsim_tpu_torch.ops import _build
+    from strsim_tpu_torch.utils.metrics import RunMetrics
 
     cfg = st.get_config().replace(**FORCED)
     _build.reset_launch_counts()
@@ -1026,6 +1102,11 @@ def run_forced(st, workloads, scores, five_metrics) -> dict:
         print(f"  {label}: compute_many(five) levenshtein_impl=pallas, jaro_impl=pallas {n} pairs "
               f"in {dt:.3f} s = {n / dt:.0f} pairs/s, byte-identical to the default config",
               flush=True)
+        rm = RunMetrics()
+        res = compute_scores(col_a, col_b, FIVE, config=cfg, metrics=rm)
+        _same_scores(label, "the forced five pass", {m: v for m, (v, _) in res.items()}, scores[label])
+        _phases(label, "five forced", rm)
+        pass_reckoning(label, "five forced", FIVE, rm, cases, cfg.impls(), by_bucket=FORCED_KERNELS)
     counts = require_launched("the forced path", want)
     require_not_launched("the forced path", PROBE_ONLY)
     print(f"  launches on the forced path: {counts}", flush=True)
@@ -1098,6 +1179,39 @@ def check_golden_and_demo(st) -> None:
           "and the default config; demo table exact", flush=True)
 
 
+def stop_children() -> None:
+    """Stop and reap every process this one started that is still alive: the
+    oracle pool's workers, multiprocessing's resource tracker (which some
+    Python 3.12 releases leave to end by itself after this process exits)
+    and any other child. The script leaves no process behind."""
+    import gc
+    import os
+    import signal
+    from multiprocessing import resource_tracker
+
+    gc.collect()  # a dead pool's locks would start the tracker anew when collected later
+    for child in multiprocessing.active_children():
+        child.terminate()
+        child.join(10)
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_fd", None) is not None:
+        os.close(tracker._fd)  # its end of the pipe: the tracker sees EOF and exits
+        tracker._fd = None
+        if tracker._pid is not None:
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(tracker._pid, 0)
+            tracker._pid = None
+    me = str(os.getpid())
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        with contextlib.suppress(OSError, IndexError, ValueError):
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+            if fields[1] == me:  # the parent's pid, after the state
+                pid = int(stat.parent.name)
+                os.kill(pid, signal.SIGKILL)
+                with contextlib.suppress(ChildProcessError):
+                    os.waitpid(pid, 0)
+
+
 def main(argv) -> int:
     import torch
 
@@ -1132,6 +1246,7 @@ def main(argv) -> int:
     for name, (_, log) in sorted(built.items()):
         (OUT_DIR / "ptxas" / f"{name}.log").write_text(log)  # each kernel's registers and spills
         print(f"  ptxas {name}: {ptxas_summary(log)}")
+    print_forced_ptxas(built, strict=only is None)
     t0 = time.perf_counter()
     native_build.get_lib()
     print(f"  native host library {native_build.target().name} ready in "
@@ -1167,7 +1282,7 @@ def main(argv) -> int:
         pass_reckoning(label, "jaro", ("jaro",), jaro_metrics[label], cases, st.get_config().impls())
         check_prefix_routes(label, "five", FIVE, five_metrics[label], st.get_config().impls())
         check_prefix_routes(label, "jaro", ("jaro",), jaro_metrics[label], st.get_config().impls())
-    forced_launches = run_forced(st, workloads, scores, five_metrics)
+    forced_launches = run_forced(st, workloads, scores, five_metrics, cases)
     launches.update((k, forced_launches[k]) for k in FORCED_KERNELS)
     run_forced_combinations(st, workloads, scores)
     for label, col_a, col_b in workloads:
@@ -1188,6 +1303,10 @@ def main(argv) -> int:
                          oracle_check(wide_label, *wide, scores[wide_label], EXT,
                                       ORACLE_ROWS_WIDE_EXT, pool)],
         }
+        pool.close()
+        pool.join()  # the workers end here, not by the context's terminate
+    del pool  # its locks unregister from the resource tracker before that stops
+    stop_children()
     check_golden_and_demo(st)
     check_native(st, workloads, oracle_sets)
     del workloads, scores
@@ -1239,4 +1358,8 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        code = main(sys.argv[1:])
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -1,6 +1,7 @@
 // The jaro scan's kernel, a group of lanes per row pair: K2's whole body
-// (jaro_scan.cu) and the cuts of it that the probe K15 times
-// (probe_jaro.cu), so that K15 attributes K2's own time.
+// (jaro_scan.cu), the cuts of it that the probe K15 times (probe_jaro.cu),
+// so that K15 attributes K2's own time, and K9's scan with its flags
+// (jaro_flags.cu).
 //
 // Contract of the scan (jaro_scan.cu, ops/jaro_cuda.py): bound = max(la,
 // lb) / 2 - 1; a-positions i < min(la, lb + bound) each flag the first
@@ -65,8 +66,9 @@ constexpr int kBlockReserved = 1024;  // the system's share of each resident blo
 // when asked), then K15's cuts, raw: the full body; without the
 // transposition count (t = m); without a's matched bits either (t = m);
 // only the equality reads (m = t = the XOR of b's word for every
-// a-position i < L, over the group).
-enum JaroCut : int { kJaroK2, kJaroFull, kJaroNoTcount, kJaroScanOnly, kJaroEqbOnly };
+// a-position i < L, over the group); then K9's: the scan raw (m, no t) and
+// both flag sets as [n, L] bytes (`jaro_store_flags`).
+enum JaroCut : int { kJaroK2, kJaroFull, kJaroNoTcount, kJaroScanOnly, kJaroEqbOnly, kJaroFlags };
 
 // A warp's shared memory: the int8 equality table, which the rank slots
 // overlay once the scan is done, or the rank slots alone (none at G <= 2),
@@ -99,6 +101,40 @@ struct JaroTableEq : TableEq {
   }
 };
 
+// K9's epilogue, once the scan is done: one [n, L] byte tensor's span of the
+// warp's rows (rows r0 .. r0 + rows - 1, contiguous in `out`) from each
+// lane's word of it (`bits`, positions 32 * lane ..; zero past the lengths),
+// group k of the warp holding row r0 + k. The lanes expand their words into
+// `buf` (rows * L + 15 bytes of the warp's shared memory, 16-byte aligned),
+// shifted as the span is from a 16-byte boundary, then the warp stores the
+// span with 16-byte stores from its aligned interior and byte stores at its
+// two ends (rows of odd width start anywhere).
+template <int G>
+__device__ __forceinline__ void jaro_store_flags(const LaneGroup<G>& g, unsigned char* buf,
+                                                 uint8_t* out, long long r0, int rows, int L,
+                                                 int k, uint32_t bits, int wl) {
+  unsigned char* dst = out + r0 * L;
+  const int bytes = rows * L;
+  const int mis = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
+  unsigned char* src = buf + mis;
+  if (k < rows) {
+    unsigned char* row = src + k * L + 32 * g.lane;
+    const int count = L - 32 * g.lane;  // this lane's positions in the row
+#pragma unroll
+    for (int q = 0; q < 32; ++q)
+      if (q < count) row[q] = (unsigned char)((bits >> q) & 1u);
+  }
+  __syncwarp();
+  const int head = min((16 - mis) & 15, bytes);
+  const int body = (bytes - head) >> 4;
+  for (int q = wl; q < head; q += kWarp) dst[q] = src[q];
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (int q = wl; q < body; q += kWarp) d4[q] = s4[q];
+  for (int q = head + (body << 4) + wl; q < bytes; q += kWarp) dst[q] = src[q];
+  __syncwarp();  // the buffer is free again
+}
+
 template <int G>
 __device__ __forceinline__ uint32_t jaro_group_xor(uint32_t v) {
 #pragma unroll
@@ -108,14 +144,16 @@ __device__ __forceinline__ uint32_t jaro_group_xor(uint32_t v) {
 
 // T: tile chars; G: lanes a row; N: chars of a lane's word compared in
 // registers, or (kTable) read from the int8 table; kPrefix: K2 writes the
-// common prefix, capped at min(L, 4), to prefix_out.
+// common prefix, capped at min(L, 4), to prefix_out. matched_out and
+// flagged_out: K9's [n, L] byte tensors (kJaroFlags, which writes no t).
 template <typename T, int G, int N, bool kTable, int Cut, bool kPrefix>
 __global__ void __launch_bounds__(kJaroThreads, (kJaroBlocksPerSm<T, G, N, kTable>))
     jaro_kernel(const T* __restrict__ a, const T* __restrict__ b, long long stride_a,
                 long long stride_b, const int* __restrict__ len_a,
                 const int* __restrict__ len_b, int* __restrict__ m_out,
                 int* __restrict__ t_out, int* __restrict__ prefix_out, int n, int L,
-                bool packed) {
+                bool packed, uint8_t* __restrict__ matched_out,
+                uint8_t* __restrict__ flagged_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   using Eq = std::conditional_t<kTable, JaroTableEq, RegisterEq<T, N>>;
   constexpr int kAheadG = G >= 4 ? kAhead : 1;  // a-positions computed ahead
@@ -127,8 +165,8 @@ __global__ void __launch_bounds__(kJaroThreads, (kJaroBlocksPerSm<T, G, N, kTabl
   unsigned char* wsm = smem + (size_t)warp * jaro_warp_bytes<T, G, kTable>(L);
   uint32_t* scratch = reinterpret_cast<uint32_t*>(wsm);  // the table, then the rank slots
   if constexpr (kTable) clear_table(scratch, wl);
-  const T* staged = stage_rows<T>(wsm + (kTable ? kTableBytes : kRankSlotBytes<G>), a, b,
-                                  stride_a, stride_b, r0, rows, L, packed, wl);
+  unsigned char* stage = wsm + (kTable ? kTableBytes : kRankSlotBytes<G>);
+  const T* staged = stage_rows<T>(stage, a, b, stride_a, stride_b, r0, rows, L, packed, wl);
   __syncwarp();
 
   // every lane stays to the end: the collectives take the whole warp; a
@@ -207,7 +245,13 @@ __global__ void __launch_bounds__(kJaroThreads, (kJaroBlocksPerSm<T, G, N, kTabl
       m = t = found_count;
     } else {
       m = g.sum(__popc(mat));
-      if constexpr (Cut == kJaroNoTcount) {
+      if constexpr (Cut == kJaroFlags) {
+        // the staged rows' last reads are done: the flags go out through them
+        t = m;
+        __syncwarp();
+        jaro_store_flags(g, stage, matched_out, r0, rows, L, k, mat, wl);
+        jaro_store_flags(g, stage, flagged_out, r0, rows, L, k, flag, wl);
+      } else if constexpr (Cut == kJaroNoTcount) {
         t = m;
       } else {
         g.sync();  // the table's last reads are done: the rank slots overlay it
@@ -228,7 +272,7 @@ __global__ void __launch_bounds__(kJaroThreads, (kJaroBlocksPerSm<T, G, N, kTabl
     } else {
       m_out[r] = m;
     }
-    t_out[r] = t;
+    if constexpr (Cut != kJaroFlags) t_out[r] = t;
   }
 }
 
@@ -244,7 +288,8 @@ cudaError_t jaro_configure(K kernel, int smem) {
 }
 
 // One launch of the instantiation `run` names, on rows r of a at a + r *
-// stride_a elements (likewise b); prefix may be null unless kPrefix.
+// stride_a elements (likewise b); prefix may be null unless kPrefix, t and
+// the flags are null but for the cuts that write them.
 struct JaroLaunch {
   const void* a;
   const void* b;
@@ -253,6 +298,8 @@ struct JaroLaunch {
   int *m, *t, *prefix;
   int n, L;
   cudaStream_t stream;
+  uint8_t* matched = nullptr;
+  uint8_t* flagged = nullptr;
 
   template <typename T, int G, int N, bool kTable, int Cut, bool kPrefix>
   cudaError_t run() const {
@@ -274,7 +321,7 @@ struct JaroLaunch {
     const int rows_per_block = kJaroWarps * (kWarp / G);
     const int smem = kJaroWarps * jaro_warp_bytes<T, G, kTable>(L);
     kernel<<<(n + rows_per_block - 1) / rows_per_block, kJaroThreads, smem, stream>>>(
-        ta, tb, stride_a, stride_b, len_a, len_b, m, t, prefix, n, L, packed);
+        ta, tb, stride_a, stride_b, len_a, len_b, m, t, prefix, n, L, packed, matched, flagged);
     return cudaGetLastError();
   }
 };

@@ -141,6 +141,21 @@ def bound(name: str, flags: dict, lens, elem_bytes: int, out_bytes: int, clock_h
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+# The full dynamic program's own floor (K10, csrc/levenshtein_wavefront.cu):
+# its cells at DP_CELL_OPS integer operations each (the char compare and its
+# add, one DPX min within the column, one on the chain down the strip), over
+# the INT32 peak. K10's bound stays K1's, the least work for its function.
+DP_CELL_OPS = 4
+
+
+def dp_floor_ms(lens, clock_hz: float) -> float:
+    """K10's DP floor for rows of lengths lens ([2, n]): la * lb cells a row
+    whose lengths are both in 1..L (the others take no cell)."""
+    la, lb = lens[0].astype(np.int64), lens[1].astype(np.int64)
+    cells = np.where((la >= 1) & (lb >= 1), la * lb, 0)
+    return float(np.sum(cells)) * DP_CELL_OPS / (INT32_LANES * clock_hz) * 1e3
+
+
 def warm_bound(numel: int, clock_hz: float):
     """(ms, "bytes" or "operations") of K11's x * 2 + 1 over `numel` int32:
     4 bytes read and 4 written an element, two operations an element."""

@@ -1,6 +1,7 @@
 // A CPU stand-in for the CUDA runtime pieces that the lane-group kernels use
 // (csrc/dp_scan.cuh, csrc/jaro_scan.cu, csrc/lev_jaro_fused.cu,
-// csrc/bigram.cu, csrc/multiset.cu, csrc/probe_jaro.cu), so that their logic
+// csrc/bigram.cu, csrc/multiset.cu, csrc/probe_jaro.cu, csrc/jaro_flags.cu,
+// csrc/levenshtein_wavefront.cu), so that their logic
 // runs where there is no card:
 // tests/test_torch_lane_kernels_cpu.py compiles those sources with g++
 // against this header, as cuda_runtime.h. One std::thread per CUDA thread,
@@ -210,6 +211,26 @@ inline unsigned __vcmpne4(unsigned x, unsigned y) {
   unsigned r = 0;
   for (int k = 0; k < 32; k += 8)
     if (((x ^ y) >> k) & 0xFFu) r |= 0xFFu << k;
+  return r;
+}
+// Hopper's DPX forms: min(a + b, c), the sum wrapping in the lane's width
+// (32 bits, or each signed 16-bit half); min(a, b, c) in each unsigned
+// 16-bit half
+inline int __viaddmin_s32(int a, int b, int c) {
+  return std::min((int)((unsigned)a + (unsigned)b), c);
+}
+inline unsigned __viaddmin_s16x2(unsigned a, unsigned b, unsigned c) {
+  unsigned r = 0;
+  for (int k = 0; k < 32; k += 16) {
+    const int16_t s = (int16_t)(uint16_t)((a >> k) + (b >> k));
+    r |= (unsigned)(uint16_t)std::min(s, (int16_t)(uint16_t)(c >> k)) << k;
+  }
+  return r;
+}
+inline unsigned __vimin3_u16x2(unsigned a, unsigned b, unsigned c) {
+  unsigned r = 0;
+  for (int k = 0; k < 32; k += 16)
+    r |= std::min({(a >> k) & 0xFFFFu, (b >> k) & 0xFFFFu, (c >> k) & 0xFFFFu}) << k;
   return r;
 }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }

@@ -99,6 +99,46 @@ def test_chip_smoke_holds_no_second_copy_of_the_bound():
     assert "warm" in chip_smoke.KERNELS and len(chip_smoke.KERNELS) == 22  # K1-K11, K12-K22
 
 
+_POOL_THEN_STOP = """
+import multiprocessing, os, pathlib, sys
+import multiprocessing.resource_tracker as rt
+if {no_exit_stop}:
+    del rt.ResourceTracker.__del__  # as an interpreter that leaves the tracker to end by itself
+sys.path.insert(0, {root!r})
+import chip_smoke
+
+def main():
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        assert pool.map(abs, [-1, 2]) == [1, 2]
+        pool.close()
+        pool.join()
+        print(rt._resource_tracker._pid, flush=True)
+    del pool
+    chip_smoke.stop_children()
+    me = str(os.getpid())
+    left = [s.parent.name for s in pathlib.Path("/proc").glob("[0-9]*/stat")
+            if s.exists() and s.read_text().rsplit(")", 1)[1].split()[1] == me]
+    assert not left and rt._resource_tracker._pid is None, left
+
+if __name__ == "__main__":
+    try:
+        main()
+    finally:
+        chip_smoke.stop_children()
+"""
+
+
+@pytest.mark.parametrize("no_exit_stop", [False, True])
+def test_chip_smoke_leaves_no_process_behind(tmp_path, no_exit_stop):
+    script = tmp_path / "pool_then_stop.py"
+    script.write_text(_POOL_THEN_STOP.format(no_exit_stop=no_exit_stop, root=str(ROOT)))
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    tracker = int(res.stdout.split()[0])
+    assert not Path(f"/proc/{tracker}").exists()  # gone the moment the script has exited
+
+
 def test_bench_torch_cpu_smoke(tmp_path):
     details = tmp_path / "details.json"
     env = {**os.environ, "OMP_NUM_THREADS": "1"}

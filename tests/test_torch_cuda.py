@@ -88,13 +88,17 @@ CASES = [
                  (7, 31, 33, 63, 95, 255, 511), (np.int8, np.int32), id="osa_scan"),
     pytest.param(bigram_cuda.bigram_stats, bigram_cuda.bigram_plain,
                  (1, 2, 7, 31, 63, 64), (np.int8, np.int32), id="bigram"),
+    # every instantiation boundary of K2's body, which K9 runs (8, 16, 32 chars a lane, 2..16 lanes)
     pytest.param(jaro_flags_cuda.jaro_flag_scan, jaro_cuda.greedy_scan,
-                 (1, 2, 7, 31, 33, 63, 95, 511, 512), (np.int8, np.int32), id="jaro_flags"),
+                 (1, 2, 7, 8, 9, 16, 17, 31, 32, 33, 63, 64, 65, 95, 128, 129, 256, 257, 511, 512),
+                 (np.int8, np.int32), id="jaro_flags"),
     pytest.param(jaro_flags_cuda.jaro_match_stats, jaro_cuda.jaro_plain,
                  (7, 63, 511), (np.int8, np.int32), id="jaro_flags_m_t"),
+    # every instantiation boundary of K10 (G = 1 with K = 8, 16; G = 2..32 with K = 12, 16)
     pytest.param(levenshtein_wavefront_cuda.levenshtein_distance,
                  levenshtein_wavefront_cuda.wavefront_plain,
-                 (1, 2, 7, 31, 63, 64, 65, 128, 129, 255, 256, 257, 511, 512), (np.int8, np.int32),
+                 (1, 2, 7, 8, 9, 16, 17, 24, 25, 31, 32, 33, 48, 49, 63, 64, 65, 96, 97, 128, 129,
+                  192, 193, 255, 256, 257, 384, 385, 511, 512), (np.int8, np.int32),
                  id="levenshtein_wavefront"),
     *(pytest.param(partial(_len_a_only, multiset_probes.multiset_unrolled, mode=mode),
                    partial(_len_a_only, multiset_probes.multiset_unrolled_plain, mode=mode),

@@ -11,10 +11,15 @@
 # case fails), then parent, change, change, parent. Writes under chiprun_out/:
 # LABEL.<run>.log and LABEL.<run>.jsonl (one line per phase-3 case: kernel,
 # device, plain and bound times), ptxas/LABEL.<library>.log (`nvcc -Xptxas -v`
-# of the six lane-group sources, csrc/multiset.cu (K3/K4) and
+# of the six lane-group sources, csrc/multiset.cu (K3/K4), the forced path's
+# csrc/jaro_flags.cu (K9) and csrc/levenshtein_wavefront.cu (K10), and
 # csrc/probe_jaro.cu, probe_myers.cu, probe_fused_lj.cu and probe_multiset.cu
 # (the probes K12-K22)) and LABEL.cuda.log
 # (tests/test_torch_cuda.py on the card).
+# Trees that share most sources can share their builds
+# (STRSIM_TPU_TORCH_BUILD_DIR: libraries are named by their sources' hash).
+# K9 and K10:
+#   bash tools/ab_torch_kernels.sh build/parent LABEL jaro_flags,levenshtein_wavefront,jaro_scan
 set -u
 cd "$(dirname "$0")/.."
 PARENT=$1
@@ -24,8 +29,8 @@ O=chiprun_out
 mkdir -p $O/ptxas
 nvidia-smi --query-gpu=name,power.limit,clocks.max.sm --format=csv,noheader
 python3 -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)'
-for f in levenshtein_myers dp_fused osa_scan jaro_scan lev_jaro_fused bigram multiset probe_jaro \
-    probe_myers probe_fused_lj probe_multiset; do
+for f in levenshtein_myers dp_fused osa_scan jaro_scan lev_jaro_fused bigram multiset jaro_flags \
+    levenshtein_wavefront probe_jaro probe_myers probe_fused_lj probe_multiset; do
   /usr/local/cuda/bin/nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
     -Xcompiler -fPIC -Xptxas -v -o "${TMPDIR:-/tmp}/$LABEL.$f.so" strsim_tpu_torch/csrc/$f.cu \
     > $O/ptxas/$LABEL.$f.log 2>&1 &
