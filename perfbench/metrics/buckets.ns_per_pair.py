@@ -1,0 +1,8 @@
+"""Bucket, stage, upload, launch and collect: RunMetrics.device_wall_s over
+the pairs, ns a pair."""
+
+
+def read(rec):
+    calls = rec.phased()
+    rows = sum(c.rows for c in calls)
+    return sum(c.run_metrics.device_wall_s for c in calls) / rows * 1e9 if rows else None

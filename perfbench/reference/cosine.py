@@ -1,0 +1,17 @@
+"""cosine (extension): Otsuka-Ochiai over character multisets,
+inter / sqrt(la * lb)."""
+from __future__ import annotations
+
+import numpy as np
+
+from perfbench.reference import _rows
+from perfbench.reference._rows import f
+
+
+def work(A, B, la, lb, dtype):
+    inter = _rows.char_inter(A, B, la, lb)
+    return f(inter, dtype) / np.sqrt(f(la * lb, dtype))
+
+
+def scores(a, b, dtype=np.float64) -> np.ndarray:
+    return _rows.scores(a, b, work, dtype)

@@ -1,0 +1,7 @@
+"""The repository's root on sys.path, for the tests of the benchmark."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
