@@ -309,7 +309,8 @@ def resident(run: Run, a, b, measures) -> dict:
     for width, sel in pp.bucket_rows(idx, la, lb, cfg).items():
         if width < 0:
             continue
-        staged = pp.stage_bucket(measures, a, b, la, lb, sel, width, cfg, run.device)
+        staged = pp.upload_bucket(pp.stage_bucket(measures, a, b, la, lb, sel, width, cfg,
+                                                  run.device), run.device)
         blocks = list(pp.bucket_blocks(staged, width))
         block_ms = marginal_block_time(block_pass, blocks, clock_hz=run.clock_hz)
         ms = block_ms * len(blocks)

@@ -33,7 +33,7 @@ from strsim_tpu_torch.ops.stats import STAT_FIELDS, compute_stats, stat_routes
 from strsim_tpu_torch.utils import encode as enc
 from strsim_tpu_torch.utils.alloc import staging_empty
 from strsim_tpu_torch.utils.encode import EncodedColumn
-from strsim_tpu_torch.utils.metrics import timer
+from strsim_tpu_torch.utils.metrics import maybe_span
 
 _BATCH_MENU = (512, 4096, 16384, 32768, 65536)
 
@@ -121,60 +121,65 @@ def compute_scores(
     Returns {measure: (values f64 [N], validity bool [N])}; values at invalid
     rows are NaN. Accepts lists / numpy arrays of str|None, anything with
     to_list, or a pair of EncodedColumns. Pass a utils.metrics.RunMetrics to
-    collect occupancy, padding waste and phase timings.
+    collect occupancy, padding waste and the call's tree of spans
+    ("strsim.call" and its parts, each named where its work happens).
     """
     cfg = config or get_config()
     device = _device(cfg)
     measures = resolve_measures(measures)
-    tm = timer()
-    t_total = timer()
-
-    if isinstance(col_a, EncodedColumn) and isinstance(col_b, EncodedColumn):
-        a, b, route = col_a, col_b, "encoded"
-        if a.width != b.width:
-            w = max(a.width, b.width)
-            a = enc._repad(a, enc.PAD_A, w)
-            b = enc._repad(b, enc.PAD_B, w)
-    else:
-        a, b, route = enc.encode_pair_with_route(col_a, col_b)
-    a, b = _broadcast_pair(a, b)
-    n = a.n
     if metrics is not None:
-        metrics.n_rows += n
-        metrics.encode_route = route
-        metrics.encode_wall_s += tm.lap()
+        metrics.calls += 1
+    with maybe_span(metrics, "strsim.call"):
+        with maybe_span(metrics, "strsim.encode"):
+            if isinstance(col_a, EncodedColumn) and isinstance(col_b, EncodedColumn):
+                a, b, route = col_a, col_b, "encoded"
+                if a.width != b.width:
+                    w = max(a.width, b.width)
+                    a = enc._repad(a, enc.PAD_A, w)
+                    b = enc._repad(b, enc.PAD_B, w)
+            else:
+                a, b, route = enc.encode_pair_with_route(col_a, col_b)
+            a, b = _broadcast_pair(a, b)
+        n = a.n
+        if metrics is not None:
+            metrics.n_rows += n
+            metrics.encode_route = route
 
-    validity, la, lb, trivial, one_empty, idx = classify(a, b, cfg)
-    out = {m: np.full(n, np.nan, dtype=np.float64) for m in measures}
-    for m in measures:
-        out[m][trivial] = 1.0
-        # one side empty: 0.0 for every measure (levenshtein's formula gives it too)
-        out[m][one_empty] = 0.0
-    if metrics is not None:
-        metrics.null_rows += int(n - int(validity.sum()))
-        metrics.fast_path_rows += int(trivial.sum())
-        metrics.one_empty_rows += int(one_empty.sum())
-        metrics.device_rows += int(idx.size)
-        metrics.classify_wall_s += tm.lap()
+        with maybe_span(metrics, "strsim.classify"):
+            validity, la, lb, trivial, one_empty, idx = classify(a, b, cfg)
+            out = {m: np.full(n, np.nan, dtype=np.float64) for m in measures}
+            for m in measures:
+                out[m][trivial] = 1.0
+                # one side empty: 0.0 for every measure (levenshtein's formula gives it too)
+                out[m][one_empty] = 0.0
+            if metrics is not None:
+                metrics.null_rows += int(n - int(validity.sum()))
+                metrics.fast_path_rows += int(trivial.sum())
+                metrics.one_empty_rows += int(one_empty.sum())
+                metrics.device_rows += int(idx.size)
 
-    if idx.size and idx.size <= cfg.host_short_circuit_rows:
-        # small input: the host scores it faster than a device round trip
-        _host_rows(out, measures, a, b, idx, cfg, metrics)
-        idx = idx[:0]
+        if idx.size and idx.size <= cfg.host_short_circuit_rows:
+            # small input: the host scores it faster than a device round trip
+            _host_rows(out, measures, a, b, idx, cfg, metrics)
+            idx = idx[:0]
 
-    # dispatch every bucket first (uploads and kernels queue on the stream),
-    # then collect and finalize in order
-    pending = []
-    for width, sel in bucket_rows(idx, la, lb, cfg).items():
-        if width < 0:  # beyond the ladder
-            _host_rows(out, measures, a, b, sel, cfg, metrics)
-            continue
-        pending.append(_device_dispatch(measures, a, b, la, lb, sel, width, cfg, device))
-    for item in pending:
-        _device_collect(out, measures, item, cfg, metrics)
-
-    if metrics is not None:
-        metrics.total_wall_s += t_total.lap()
+        with maybe_span(metrics, "strsim.partition"):
+            buckets = bucket_rows(idx, la, lb, cfg)
+        # dispatch every bucket first (uploads and kernels queue on the stream),
+        # then collect and finalize in order
+        pending = []
+        for width, sel in buckets.items():
+            if width < 0:  # beyond the ladder
+                _host_rows(out, measures, a, b, sel, cfg, metrics)
+                continue
+            pending.append(_device_dispatch(measures, a, b, la, lb, sel, width, cfg, device,
+                                            metrics))
+        for item in pending:
+            _device_collect(out, measures, item, cfg, metrics)
+        with maybe_span(metrics, "strsim.release"):
+            # the encoded columns' pages go back to the system here, inside the
+            # call's span, and not as its frame is torn down
+            del a, b
     return {m: (out[m], validity) for m in measures}
 
 
@@ -231,114 +236,124 @@ def _pad_codes(codes: np.ndarray, pad: int, width: int) -> np.ndarray:
 
 
 def stage_bucket(measures, a, b, la, lb, sel, width: int, cfg: StrsimConfig,
-                 device: torch.device) -> dict:
-    """Sort one bucket's rows `sel` by la + lb, pack them with their lengths
-    into a staging buffer (pinned for a CUDA device) padded to whole blocks,
-    and start the upload to `device` without blocking. Returns the staged
-    bucket: "sel" (sorted), "block", "n_pad", "dtype", "codes" ([n_pad, 2 *
-    width] on the device, a | b per row), "lens" ([2, n_pad] int32 on the
-    device), and "host", the staging tensors, which must stay alive until
-    the upload has completed (the collect's download waits for it)."""
-    # length-sorted rows keep a warp's per-row trip counts close together
-    sel = sel[np.argsort(la[sel].astype(np.int64) + lb[sel], kind="stable")]
+                 device: torch.device, metrics=None) -> dict:
+    """Sort one bucket's rows `sel` by la + lb and pack them with their
+    lengths into a staging buffer (pinned for a CUDA device) padded to whole
+    blocks. Returns the staged bucket: "sel" (sorted), "block", "n_pad",
+    "dtype" and "host", the staging tensors ([n_pad, 2 * width] codes, a | b
+    per row, and [2, n_pad] int32 lengths); `upload_bucket` sends them to
+    `device`."""
+    with maybe_span(metrics, "strsim.stage.sort"):
+        # length-sorted rows keep a warp's per-row trip counts close together
+        sel = sel[np.argsort(la[sel].astype(np.int64) + lb[sel], kind="stable")]
     dtype, _ = _narrow_bucket(cfg, a, b, sel, width)
     block = min(_block_rows(width, cfg, measures, dtype), _round_batch(sel.size, cfg))
     n_pad = -(-sel.size // block) * block
-    host_codes, packed = staging_empty((n_pad, 2 * width), dtype, device)
-    host_lens, lens = staging_empty((2, n_pad), np.int32, device)
-    if a.codes.dtype == dtype and b.codes.dtype == dtype:
-        nb.pack_bucket(np.ascontiguousarray(a.codes), np.ascontiguousarray(b.codes), la, lb, sel,
-                       width, enc.PAD_A, enc.PAD_B, packed, lens)
-    else:  # int32 columns into an int8 (ASCII) bucket: narrow while packing
-        for half, side, pad in ((slice(0, width), a, enc.PAD_A),
-                                (slice(width, 2 * width), b, enc.PAD_B)):
-            codes = (side.codes[sel, :width] if side.width >= width
-                     else _pad_codes(side.codes[sel], pad, width))
-            packed[: sel.size, half] = codes
-            packed[sel.size :, half] = pad
-        lens[:, sel.size :] = 0
-        lens[0, : sel.size] = la[sel]
-        lens[1, : sel.size] = lb[sel]
-    return {
-        "sel": sel, "block": block, "n_pad": n_pad, "dtype": np.dtype(dtype).name,
-        "codes": host_codes.to(device, non_blocking=True),
-        "lens": host_lens.to(device, non_blocking=True),
-        "host": (host_codes, host_lens),
-    }
+    with maybe_span(metrics, "strsim.stage.alloc"):
+        host_codes, packed = staging_empty((n_pad, 2 * width), dtype, device)
+        host_lens, lens = staging_empty((2, n_pad), np.int32, device)
+    if metrics is not None:
+        metrics.count("stage.bytes", packed.nbytes + lens.nbytes)
+    with maybe_span(metrics, "strsim.stage.pack"):
+        if a.codes.dtype == dtype and b.codes.dtype == dtype:
+            nb.pack_bucket(np.ascontiguousarray(a.codes), np.ascontiguousarray(b.codes), la, lb,
+                           sel, width, enc.PAD_A, enc.PAD_B, packed, lens)
+        else:  # int32 columns into an int8 (ASCII) bucket: narrow while packing
+            for half, side, pad in ((slice(0, width), a, enc.PAD_A),
+                                    (slice(width, 2 * width), b, enc.PAD_B)):
+                codes = (side.codes[sel, :width] if side.width >= width
+                         else _pad_codes(side.codes[sel], pad, width))
+                packed[: sel.size, half] = codes
+                packed[sel.size :, half] = pad
+            lens[:, sel.size :] = 0
+            lens[0, : sel.size] = la[sel]
+            lens[1, : sel.size] = lb[sel]
+    return {"sel": sel, "block": block, "n_pad": n_pad, "dtype": np.dtype(dtype).name,
+            "host": (host_codes, host_lens)}
+
+
+def upload_bucket(staged: dict, device: torch.device) -> dict:
+    """Start the staged bucket's upload to `device` without blocking: adds
+    "codes" and "lens", the device tensors. The staging tensors ("host")
+    must stay alive until the upload has completed (the collect's download
+    waits for it). Returns `staged`."""
+    host_codes, host_lens = staged["host"]
+    staged["codes"] = host_codes.to(device, non_blocking=True)
+    staged["lens"] = host_lens.to(device, non_blocking=True)
+    return staged
 
 
 def bucket_blocks(staged: dict, width: int):
-    """The staged bucket's blocks as the stat calls take them: (a, b, len_a,
-    len_b), column slices of the packed tile (row stride 2 * width, no
-    copy)."""
+    """The uploaded bucket's blocks as the stat calls take them: (a, b,
+    len_a, len_b), column slices of the packed tile (row stride 2 * width,
+    no copy)."""
     codes, lens, block = staged["codes"], staged["lens"], staged["block"]
     for start in range(0, staged["n_pad"], block):
         rows = slice(start, start + block)
         yield codes[rows, :width], codes[rows, width:], lens[0, rows], lens[1, rows]
 
 
-def _device_dispatch(measures, a, b, la, lb, sel, width, cfg, device):
-    """Stage one bucket and launch the stat kernels block by block. Returns
-    a pending record for _device_collect."""
-    tm = timer()
-    staged = stage_bucket(measures, a, b, la, lb, sel, width, cfg, device)
-    fields = _stat_fields(measures)
-    impls = cfg.impls()
-    outs = []
-    for block in bucket_blocks(staged, width):
-        stats = compute_stats(*block, measures, impls)
-        outs.append(torch.stack([stats[f] for f in fields]))
-    sel = staged["sel"]
-    return {**staged, "width": width, "lens_a": la[sel], "lens_b": lb[sel], "outs": outs,
-            "dispatch_dt": tm.lap()}
+def _device_dispatch(measures, a, b, la, lb, sel, width, cfg, device, metrics=None):
+    """Stage one bucket, upload it and launch the stat kernels block by
+    block. Returns a pending record for _device_collect."""
+    with maybe_span(metrics, "strsim.stage", width=width):
+        staged = stage_bucket(measures, a, b, la, lb, sel, width, cfg, device, metrics)
+        fields = _stat_fields(measures)
+        impls = cfg.impls()
+        outs = []
+        with maybe_span(metrics, "strsim.enqueue"):
+            upload_bucket(staged, device)
+            for block in bucket_blocks(staged, width):
+                stats = compute_stats(*block, measures, impls)
+                outs.append(torch.stack([stats[f] for f in fields]))
+        sel = staged["sel"]
+        return {**staged, "width": width, "lens_a": la[sel], "lens_b": lb[sel], "outs": outs}
 
 
 def _device_collect(out, measures, item, cfg, metrics=None):
-    tm = timer()
-    sel = item["sel"]
-    # waits for the uploads and kernels; [fields, n_pad] int32, C order, so
-    # each field's row is a contiguous vector
-    host = torch.cat(item["outs"], dim=1).cpu().numpy()
-    stats = {f: host[i, : sel.size] for i, f in enumerate(_stat_fields(measures))}
-    device_dt = item["dispatch_dt"] + tm.lap()
-    lens_a, lens_b = item["lens_a"], item["lens_b"]
-    stats64 = None
-    for m in measures:
-        if cfg.native_finalize and m in nb.FINALIZE_FIELDS:
-            nb.finalize_scatter(m, stats, lens_a, lens_b, out[m], sel)
-            continue
-        if stats64 is None:
-            stats64 = {f: v.astype(np.int64) for f, v in stats.items()}
-        out[m][sel] = MEASURES[m].finalizer(stats64, lens_a.astype(np.int64),
-                                            lens_b.astype(np.int64))
-    if metrics is not None:
-        width = item["width"]
-        bm = metrics.bucket(width)
-        bm.dtype = item["dtype"]
-        bm.rows += int(sel.size)
-        bm.padded_rows += int(item["n_pad"] - sel.size)
-        bm.char_lanes += int(sel.size) * width
-        bm.useful_char_lanes += int(np.maximum(lens_a, lens_b).sum())
-        bm.device_calls += len(item["outs"])
-        bm.device_wall_s += device_dt
-        metrics.device_wall_s += device_dt
-        metrics.finalize_wall_s += tm.lap()
+    width, sel = item["width"], item["sel"]
+    with maybe_span(metrics, "strsim.collect", width=width):
+        with maybe_span(metrics, "strsim.collect.download", width=width):
+            # waits for the uploads and kernels; [fields, n_pad] int32, C order,
+            # so each field's row is a contiguous vector
+            host = torch.cat(item["outs"], dim=1).cpu().numpy()
+            stats = {f: host[i, : sel.size] for i, f in enumerate(_stat_fields(measures))}
+        lens_a, lens_b = item["lens_a"], item["lens_b"]
+        with maybe_span(metrics, "strsim.finalize"):
+            stats64 = None
+            for m in measures:
+                if cfg.native_finalize and m in nb.FINALIZE_FIELDS:
+                    nb.finalize_scatter(m, stats, lens_a, lens_b, out[m], sel)
+                    continue
+                if stats64 is None:
+                    stats64 = {f: v.astype(np.int64) for f, v in stats.items()}
+                out[m][sel] = MEASURES[m].finalizer(stats64, lens_a.astype(np.int64),
+                                                    lens_b.astype(np.int64))
+        if metrics is not None:
+            bm = metrics.bucket(width)
+            bm.dtype = item["dtype"]
+            bm.rows += int(sel.size)
+            bm.padded_rows += int(item["n_pad"] - sel.size)
+            bm.char_lanes += int(sel.size) * width
+            bm.useful_char_lanes += int(np.maximum(lens_a, lens_b).sum())
+            bm.device_calls += len(item["outs"])
 
 
 def _host_rows(out, measures, a, b, sel, cfg, metrics=None):
     """Score rows on the host (small inputs, rows beyond the ladder): the
     native scalar kernels on every core, or the oracle (fallback="oracle").
     Counted as `oracle_rows`, the JAX engine's name for host-scored rows."""
-    if cfg.fallback == "native":
-        for m in measures:
-            out[m][sel] = nb.native_compute(m, a.codes[sel], a.lengths[sel], b.codes[sel],
-                                            b.lengths[sel], threads=0)
-    else:
-        for i in sel:
-            sa = enc.decode_row(a.codes[i], int(a.lengths[i]))
-            sb = enc.decode_row(b.codes[i], int(b.lengths[i]))
+    with maybe_span(metrics, "strsim.host_rows"):
+        if cfg.fallback == "native":
             for m in measures:
-                out[m][i] = MEASURES[m].oracle(sa, sb)
-    if metrics is not None:
-        metrics.oracle_rows += int(len(sel))
-        metrics.device_rows -= int(len(sel))
+                out[m][sel] = nb.native_compute(m, a.codes[sel], a.lengths[sel], b.codes[sel],
+                                                b.lengths[sel], threads=0)
+        else:
+            for i in sel:
+                sa = enc.decode_row(a.codes[i], int(a.lengths[i]))
+                sb = enc.decode_row(b.codes[i], int(b.lengths[i]))
+                for m in measures:
+                    out[m][i] = MEASURES[m].oracle(sa, sb)
+        if metrics is not None:
+            metrics.oracle_rows += int(len(sel))
+            metrics.device_rows -= int(len(sel))
