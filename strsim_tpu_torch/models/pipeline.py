@@ -3,11 +3,12 @@ scores. The counterpart of `strsim_tpu/models/pipeline.py:compute_scores`:
 
   1. validate shapes and broadcast a length-1 side (strsim.rs:48-52, 61-66);
   2. resolve null, both-empty, byte-equal and one-empty rows on the host;
-  3. bucket the remaining rows by max(len_a, len_b) onto the ladder, narrow
-     pure-ASCII buckets to int8, sort each bucket by la + lb, pad it to a
-     size from the batch menu, pack it (native library) into a pinned
-     staging buffer, upload it once without blocking and run the stat
-     kernels (ops/stats.py) block by block;
+  3. bucket the remaining rows by max(len_a, len_b) onto the ladder, each
+     bucket ordered by la + lb (one native counting pass), narrow
+     pure-ASCII buckets to int8, pad each to a size from the batch menu,
+     pack it (native library) into a pinned staging buffer, upload it once
+     without blocking and run the stat kernels (ops/stats.py) block by
+     block;
   4. download the integer stats, finalize exact f64 scores on the host in the
      reference's order and scatter them back to row order (native library,
      or the numpy finalizers with native_finalize=False).
@@ -21,6 +22,7 @@ fallback="oracle").
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -165,6 +167,8 @@ def compute_scores(
 
         with maybe_span(metrics, "strsim.partition"):
             buckets = bucket_rows(idx, la, lb, cfg)
+            if metrics is not None:
+                metrics.count("partition.keys", partition_keys(buckets, la, lb, cfg))
         # dispatch every bucket first (uploads and kernels queue on the stream),
         # then collect and finalize in order
         pending = []
@@ -199,16 +203,65 @@ def classify(a: EncodedColumn, b: EncodedColumn, cfg: StrsimConfig):
     return validity, la, lb, trivial, one_empty, np.nonzero(work & ~one_empty)[0]
 
 
+@functools.lru_cache(maxsize=16)
+def bucket_ranks(buckets: Tuple[int, ...], overflow_policy: str,
+                 max_extend_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(widths, rank_of) of a config's ladder: widths, int64, -1 (the rows
+    beyond the ladder) and then every width `StrsimConfig.bucket_for` can
+    give, ascending; rank_of, int32, for each max length 0..the widest, the
+    index in widths of its bucket (0 beyond the ladder). bucket_for(m) ==
+    widths[rank_of[m]], and -1 for every m past the widest. Read-only,
+    cached per ladder."""
+    extended = []
+    if overflow_policy == "extend":  # bucket_for's 2L + 1 edges up to max_extend_len
+        edge = buckets[-1]
+        while edge * 2 + 1 <= max_extend_len:
+            edge = edge * 2 + 1
+            extended.append(edge)
+    top = max([*buckets, *extended])
+    bucket_of = np.full(top + 1, -1, dtype=np.int64)
+    for edge in reversed(buckets):  # the first edge in the ladder's order that fits
+        bucket_of[: edge + 1] = edge
+    if extended:
+        past = np.arange(max(buckets) + 1, top + 1)
+        bucket_of[past] = np.array(extended)[np.searchsorted(extended, past)]
+    widths = np.unique(np.concatenate([[-1], bucket_of]))
+    rank_of = np.searchsorted(widths, bucket_of).astype(np.int32)
+    widths.flags.writeable = rank_of.flags.writeable = False
+    return widths, rank_of
+
+
+def _ladder(cfg: StrsimConfig) -> Tuple[np.ndarray, np.ndarray]:
+    return bucket_ranks(tuple(cfg.buckets), cfg.overflow_policy, cfg.max_extend_len)
+
+
 def bucket_rows(idx, la, lb, cfg: StrsimConfig) -> Dict[int, np.ndarray]:
-    """{bucket width: rows of idx in it}, by max(la, lb) on the ladder; -1
-    holds the rows beyond it (scored on the host)."""
+    """{bucket width: rows of idx in it}, by max(la, lb) on the ladder, -1
+    first (the rows beyond the ladder, scored on the host, in row order),
+    then the widths ascending, each bucket's rows ordered by la + lb, ties
+    in row order: one stable counting pass of the native library
+    (`binding.order_rows`). Each value is a slice of that pass's output.
+    idx: int64 rows in row order; la, lb: int32 lengths."""
     if not idx.size:
         return {}
-    maxlen = np.maximum(la[idx], lb[idx])
-    uniq = np.unique(maxlen)
-    uniq_bucket = np.array([cfg.bucket_for(int(v)) for v in uniq], dtype=np.int64)
-    bucket_of = uniq_bucket[np.searchsorted(uniq, maxlen)]
-    return {int(w): idx[bucket_of == w] for w in np.unique(bucket_of)}
+    widths, rank_of = _ladder(cfg)
+    order, ends, _ = nb.order_rows(idx, la, lb, rank_of, widths.size)
+    starts = np.concatenate([[0], ends[:-1]])
+    return {int(w): order[lo:hi] for w, lo, hi in zip(widths, starts, ends) if hi > lo}
+
+
+def partition_keys(buckets: Dict[int, np.ndarray], la, lb, cfg: StrsimConfig) -> int:
+    """The size of `bucket_rows`' count table for its result `buckets`:
+    (rank of the widest bucket + 1) x (largest la + lb on the ladder + 1),
+    the last row of each bucket holding its largest la + lb; 0 when no pass
+    ran."""
+    ladder = [w for w in buckets if w >= 0]
+    if not ladder:
+        return 1 if buckets else 0
+    widths, _ = _ladder(cfg)
+    rank = int(np.searchsorted(widths, max(ladder)))
+    top_sum = max(int(la[buckets[w][-1]]) + int(lb[buckets[w][-1]]) for w in ladder)
+    return (rank + 1) * (top_sum + 1)
 
 
 def _narrow_bucket(cfg: StrsimConfig, a, b, sel, width: int):
@@ -237,15 +290,13 @@ def _pad_codes(codes: np.ndarray, pad: int, width: int) -> np.ndarray:
 
 def stage_bucket(measures, a, b, la, lb, sel, width: int, cfg: StrsimConfig,
                  device: torch.device, metrics=None) -> dict:
-    """Sort one bucket's rows `sel` by la + lb and pack them with their
-    lengths into a staging buffer (pinned for a CUDA device) padded to whole
-    blocks. Returns the staged bucket: "sel" (sorted), "block", "n_pad",
-    "dtype" and "host", the staging tensors ([n_pad, 2 * width] codes, a | b
-    per row, and [2, n_pad] int32 lengths); `upload_bucket` sends them to
-    `device`."""
-    with maybe_span(metrics, "strsim.stage.sort"):
-        # length-sorted rows keep a warp's per-row trip counts close together
-        sel = sel[np.argsort(la[sel].astype(np.int64) + lb[sel], kind="stable")]
+    """Pack one bucket's rows `sel` with their lengths into a staging buffer
+    (pinned for a CUDA device) padded to whole blocks. `sel` arrives ordered
+    by la + lb from `bucket_rows` (length-ordered rows keep a warp's per-row
+    trip counts close together) and is staged in that order. Returns the
+    staged bucket: "sel", "block", "n_pad", "dtype" and "host", the staging
+    tensors ([n_pad, 2 * width] codes, a | b per row, and [2, n_pad] int32
+    lengths); `upload_bucket` sends them to `device`."""
     dtype, _ = _narrow_bucket(cfg, a, b, sel, width)
     block = min(_block_rows(width, cfg, measures, dtype), _round_batch(sel.size, cfg))
     n_pad = -(-sel.size // block) * block

@@ -1,9 +1,10 @@
 """The native host layer: a C++ library (strsim_host.cpp) built with g++ at
 first use (build.py) and called through ctypes (binding.py).
 
-It encodes string columns into tiles, packs buckets, finalizes and scatters
-scores, scores host rows on every core, and gives the single-core baseline
-that bench_torch.py compares the device with. Nothing builds at import.
+It encodes string columns into tiles, orders the device rows by bucket,
+packs buckets, finalizes and scatters scores, scores host rows on every
+core, and gives the single-core baseline that bench_torch.py compares the
+device with. Nothing builds at import.
 """
 from strsim_tpu_torch.native.binding import (
     FINALIZE_FIELDS,
@@ -13,6 +14,7 @@ from strsim_tpu_torch.native.binding import (
     finalize_scatter,
     native_compute,
     native_phonetic_codes,
+    order_rows,
     pack_bucket,
 )
 from strsim_tpu_torch.native.build import build_library, get_lib, has_object_routes
@@ -28,5 +30,6 @@ __all__ = [
     "has_object_routes",
     "native_compute",
     "native_phonetic_codes",
+    "order_rows",
     "pack_bucket",
 ]

@@ -199,6 +199,44 @@ def pack_bucket(codes_a: np.ndarray, codes_b: np.ndarray, len_a, len_b, sel, wid
                                  _addr(lens), n_out)
 
 
+def _vector(name: str, arr: np.ndarray, dtype) -> np.ndarray:
+    if not isinstance(arr, np.ndarray) or arr.dtype != dtype or arr.ndim != 1 \
+            or not arr.flags.c_contiguous:
+        raise ValueError(f"{name} must be a C-contiguous {np.dtype(dtype)} vector, got "
+                         f"{getattr(arr, 'dtype', type(arr).__name__)} "
+                         f"{getattr(arr, 'shape', '')}")
+    return arr
+
+
+def order_rows(idx: np.ndarray, la: np.ndarray, lb: np.ndarray, rank_of: np.ndarray,
+               n_ranks: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Rows `idx` (int64) ordered by rank, then by la + lb, ties in idx's
+    order: one stable counting sort, one thread. A row's rank is
+    rank_of[max(la, lb)] (int32; a row longer than rank_of's last length
+    takes rank 0), and rank 0 takes one key, so its rows keep idx's order.
+    Returns (the ordered rows, int64 [len(idx)]; each rank's end in them,
+    int64 [n_ranks]; the count table's size, (largest rank + 1) x (largest
+    la + lb at a rank above 0, plus 1)). Raises on a wrong dtype or shape,
+    a row outside la, a negative length, or a rank outside 0..n_ranks - 1."""
+    idx = _vector("idx", idx, np.int64)
+    la, lb = _vector("la", la, np.int32), _vector("lb", lb, np.int32)
+    rank_of = _vector("rank_of", rank_of, np.int32)
+    if lb.shape != la.shape:
+        raise ValueError(f"la and lb differ in length: {la.shape} and {lb.shape}")
+    if n_ranks < 1:
+        raise ValueError(f"n_ranks must be at least 1, got {n_ranks}")
+    out = np.empty(idx.size, dtype=np.int64)
+    ends = np.empty(n_ranks, dtype=np.int64)
+    keys = get_lib().strsim_order_rows(_addr(idx), idx.size, _addr(la), _addr(lb), la.size,
+                                       _addr(rank_of), rank_of.size, n_ranks, _addr(out),
+                                       _addr(ends))
+    if keys < 0:
+        row = int(idx[-keys - 1])
+        raise ValueError(f"idx[{-keys - 1}] = {row}: outside la's {la.size} rows, a negative "
+                         f"length, or a rank outside 0..{n_ranks - 1}")
+    return out, ends, int(keys)
+
+
 def ragged(codes: np.ndarray, lengths: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """A padded [n, w] tile -> (its rows' chars concatenated, int32; int64
     offsets [n + 1])."""

@@ -13,8 +13,9 @@
 //     (b) the exact scorer of the pipeline's host rows (small inputs, rows
 //     beyond the bucket ladder), on all cores.
 //
-//  3. Bucket packing, row equality and the exact f64 finalize + scatter
-//     around the device stats.
+//  3. The device rows' order (bucket, then la + lb), bucket packing, row
+//     equality and the exact f64 finalize + scatter around the device
+//     stats.
 //
 // One change from the JAX package's copy: strsim_pack_bucket writes the
 // lengths as [2, n_out] (all of a's, then all of b's), the layout the
@@ -36,6 +37,7 @@
 #include <cstdint>
 #include <cstring>
 #include <limits>
+#include <memory>
 #include <string>
 #include <thread>
 #include <unordered_map>
@@ -287,6 +289,53 @@ int64_t strsim_pack_bucket(const void* codes_a, const void* codes_b,
   }
   for (auto& th : pool) th.join();
   return 0;
+}
+
+// Order the device rows idx (row order) by bucket and, inside a bucket, by
+// la + lb: one stable counting sort on the key (rank, la + lb). A row's rank
+// is rank_of[max(la, lb)] (rank_of holds n_table entries; a row longer than
+// n_table - 1 takes rank 0), 0 for the rows beyond the ladder, 1.. the
+// bucket widths ascending. Rank 0 takes one key, so its rows keep their row
+// order. The count table is sized from the call's own rows: (largest rank +
+// 1) x (largest la + lb of a row of rank >= 1, plus 1). Pass 1 checks each
+// row and keeps its (rank, la + lb), pass 2 counts the keys, a prefix sum
+// makes the counts offsets, pass 3 scatters idx into out. ends[r] (n_ranks
+// entries) is the end of rank r's rows in out. One thread. Returns the
+// count table's size, or -(i + 1) for the first row i of idx that lies
+// outside 0..n_rows - 1, has a negative length, or takes a rank outside
+// 0..n_ranks - 1.
+int64_t strsim_order_rows(const int64_t* idx, int64_t n, const int32_t* la,
+                          const int32_t* lb, int64_t n_rows,
+                          const int32_t* rank_of, int64_t n_table,
+                          int32_t n_ranks, int64_t* out, int64_t* ends) {
+  std::unique_ptr<uint64_t[]> rank_sum(new uint64_t[n]);  // rank << 32 | sum
+  int32_t max_rank = 0;
+  int64_t max_sum = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t s = idx[i];
+    if (s < 0 || s >= n_rows) return -(i + 1);
+    int32_t a = la[s], b = lb[s];
+    if (a < 0 || b < 0) return -(i + 1);
+    int32_t m = std::max(a, b);
+    int32_t r = m < n_table ? rank_of[m] : 0;
+    if (r < 0 || r >= n_ranks) return -(i + 1);
+    int64_t sum = r ? (int64_t)a + b : 0;
+    max_rank = std::max(max_rank, r);
+    max_sum = std::max(max_sum, sum);
+    rank_sum[i] = (uint64_t)r << 32 | (uint64_t)sum;
+  }
+  const int64_t span = max_sum + 1;
+  const int64_t keys = (int64_t)(max_rank + 1) * span;
+  auto key = [&](int64_t i) {
+    return (int64_t)(rank_sum[i] >> 32) * span + (int64_t)(rank_sum[i] & 0xffffffffu);
+  };
+  std::vector<int64_t> offset(keys + 1, 0);
+  for (int64_t i = 0; i < n; ++i) ++offset[key(i) + 1];
+  for (int64_t k = 0; k < keys; ++k) offset[k + 1] += offset[k];
+  for (int32_t r = 0; r < n_ranks; ++r)
+    ends[r] = r <= max_rank ? offset[(r + 1) * span] : n;
+  for (int64_t i = 0; i < n; ++i) out[offset[key(i)]++] = idx[i];
+  return keys;
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 """strsim_tpu_torch's native host layer (strsim_tpu_torch/native/) against
 strsim_tpu's native library and the oracle, on the same seeded rows: the
 scalar kernels of all fourteen measures (one thread and every core), the
-finalize and scatter, the bucket pack in the port's [2, n] lengths layout,
-row equality and the phonetic keys; and its build, which two processes can
-run at once and which raises when the compiler fails."""
+finalize and scatter, the rows' order by bucket and la + lb, the bucket
+pack in the port's [2, n] lengths layout, row equality and the phonetic
+keys; and its build, which two processes can run at once and which raises
+when the compiler fails."""
 import os
 import subprocess
 import sys
@@ -167,6 +168,72 @@ def test_pack_bucket_matches_numpy_in_the_ports_layout(dtype):
     with pytest.raises(ValueError, match="lens"):
         tnb.pack_bucket(codes_a, codes_b, la, lb, sel, width, -1, -2, packed,
                         np.empty((n_out, 2), np.int32))
+
+
+def _ordered_rows(seed, n=90_000):
+    """Rows of two sides, lengths 0..40 and a few past the table; a table
+    of ranks 0..4 over lengths 0..31 (0 at 0..2, the others by 8s)."""
+    rng = np.random.default_rng(seed)
+    la = rng.integers(0, 41, n).astype(np.int32)
+    lb = rng.integers(0, 33, n).astype(np.int32)
+    idx = np.sort(rng.choice(n, n // 2, replace=False)).astype(np.int64)
+    rank_of = np.minimum(np.arange(32) // 8 + 1, 4).astype(np.int32)
+    rank_of[:3] = 0
+    return idx, la, lb, rank_of
+
+
+def test_order_rows_offsets_cover_idx_exactly_once():
+    """Each rank's slice of the output holds exactly idx's rows of that rank,
+    ordered by la + lb and then by idx (rank 0 by idx alone); the slices
+    cover the output once, and the count table is (largest rank + 1) x
+    (largest la + lb at a rank above 0, plus 1)."""
+    idx, la, lb, rank_of = _ordered_rows(11)
+    out, ends, keys = tnb.order_rows(idx, la, lb, rank_of, 6)
+    m = np.maximum(la[idx], lb[idx])
+    rank = np.where(m < rank_of.size, rank_of[np.minimum(m, rank_of.size - 1)], 0)
+    assert out.dtype == np.int64 and ends.dtype == np.int64 and ends.shape == (6,)
+    assert np.all(np.diff(ends) >= 0) and ends[-1] == idx.size and ends[4] == ends[5]
+    assert np.array_equal(np.sort(out), idx)
+    starts = np.concatenate([[0], ends[:-1]])
+    for r, (lo, hi) in enumerate(zip(starts, ends)):
+        rows = idx[rank == r]
+        if r:
+            rows = rows[np.argsort(la[rows].astype(np.int64) + lb[rows], kind="stable")]
+        assert np.array_equal(out[lo:hi], rows), r
+    sums = (la[idx] + lb[idx])[rank > 0]
+    assert keys == (rank.max() + 1) * (sums.max() + 1)
+    assert tnb.order_rows(idx[:0], la, lb, rank_of, 6)[1].tolist() == [0] * 6
+    only_host = idx[rank == 0]
+    out, ends, keys = tnb.order_rows(only_host, la, lb, rank_of, 6)
+    assert np.array_equal(out, only_host) and keys == 1 and ends.tolist() == [only_host.size] * 6
+
+
+def test_order_rows_refuses_what_it_cannot_take():
+    idx, la, lb, rank_of = _ordered_rows(12, 1_000)
+    with pytest.raises(ValueError, match="idx"):
+        tnb.order_rows(idx.astype(np.int32), la, lb, rank_of, 5)
+    with pytest.raises(ValueError, match="la"):
+        tnb.order_rows(idx, la.astype(np.int64), lb, rank_of, 5)
+    with pytest.raises(ValueError, match="lb"):
+        tnb.order_rows(idx, la, lb.astype(np.int16), rank_of, 5)
+    with pytest.raises(ValueError, match="rank_of"):
+        tnb.order_rows(idx, la, lb, rank_of.astype(np.int64), 5)
+    with pytest.raises(ValueError, match="rank_of"):
+        tnb.order_rows(idx, la, lb, np.repeat(rank_of, 2)[::2], 5)
+    with pytest.raises(ValueError, match="differ"):
+        tnb.order_rows(idx, la, lb[:-1], rank_of, 5)
+    with pytest.raises(ValueError, match="outside la"):  # a row past la
+        tnb.order_rows(np.append(idx, la.size), la, lb, rank_of, 5)
+    with pytest.raises(ValueError, match="outside la"):
+        tnb.order_rows(np.insert(idx, 0, -1), la, lb, rank_of, 5)
+    bad = la.copy()
+    bad[idx[7]] = -1  # a length outside the table
+    with pytest.raises(ValueError, match=r"idx\[7\]"):
+        tnb.order_rows(idx, bad, lb, rank_of, 5)
+    with pytest.raises(ValueError, match="rank outside 0..3"):  # a rank past n_ranks
+        tnb.order_rows(idx, la, lb, rank_of, 4)
+    with pytest.raises(ValueError, match="n_ranks"):
+        tnb.order_rows(idx, la, lb, rank_of, 0)
 
 
 @pytest.mark.parametrize("dtype", [np.int8, np.int32])

@@ -4,8 +4,9 @@ call tree each piece of work belongs to; the call's own time outside its
 parts is small; the phase fields are the sums of their spans, exactly;
 without a RunMetrics no span, clock read or profiler range is made and the
 scores are byte-equal; under torch.profiler the spans are ranges of the
-trace, nested as in memory and on no device timeline; and the benchmark's
-readers of the spans and the staging counter read a rehearsed run."""
+trace, nested as in memory and on no device timeline; the partition counter
+sums each call's count table; and the benchmark's readers of the spans and
+the staging counter read a rehearsed run."""
 import json
 import pathlib
 import subprocess
@@ -18,6 +19,7 @@ import torch
 
 from strsim_tpu_torch import config as torch_config
 from strsim_tpu_torch.models import pipeline as tpipe
+from strsim_tpu_torch.native import binding as tnb
 from strsim_tpu_torch.utils import metrics as tmetrics
 from strsim_tpu_torch.utils.metrics import PHASES, RunMetrics
 
@@ -35,7 +37,6 @@ TREE = {
     "strsim.host_rows": "strsim.call",
     "strsim.partition": "strsim.call",
     "strsim.stage": "strsim.call",
-    "strsim.stage.sort": "strsim.stage",
     "strsim.stage.alloc": "strsim.stage",
     "strsim.stage.pack": "strsim.stage",
     "strsim.enqueue": "strsim.stage",
@@ -125,7 +126,7 @@ def test_children_in_order(traced):
     for i in children[0]:
         if rm.spans[i].name == "strsim.stage":
             assert [rm.spans[k].name for k in children[i]] == [
-                "strsim.stage.sort", "strsim.stage.alloc", "strsim.stage.pack", "strsim.enqueue"]
+                "strsim.stage.alloc", "strsim.stage.pack", "strsim.enqueue"]
 
 
 def test_call_self_time_is_small(traced):
@@ -159,7 +160,26 @@ def test_stage_bytes_count_the_padded_staging(traced):
     rm, _ = traced
     want = sum((bm.rows + bm.padded_rows) * (2 * bm.width * np.dtype(bm.dtype).itemsize + 8)
                for bm in rm.buckets.values())
-    assert rm.counters == {"stage.bytes": want} and want > 0
+    assert set(rm.counters) == {"stage.bytes", "partition.keys"}
+    assert rm.counters["stage.bytes"] == want and want > 0
+
+
+def test_partition_keys_count_each_calls_count_table(traced, cfg):
+    """The counter `partition.keys` sums the size of each call's count table
+    (`bucket_rows`' native pass): the three calls' inputs ordered again by
+    the native pass give the same sum; the 5-row call runs no pass."""
+    rm, _ = traced
+    want = 0
+    for (a, b), n in ((_columns(20000), 20000), (_columns(5, 6), 5), (_columns(3000, 7), 3000)):
+        ea, eb = tpipe.enc.encode_pair_with_route(a, b)[:2]
+        _, la, lb, _, _, idx = tpipe.classify(ea, eb, cfg)
+        if idx.size <= cfg.host_short_circuit_rows:
+            continue
+        widths, rank_of = tpipe.bucket_ranks(cfg.buckets, cfg.overflow_policy, cfg.max_extend_len)
+        keys = tnb.order_rows(idx, la, lb, rank_of, widths.size)[2]
+        assert keys == tpipe.partition_keys(tpipe.bucket_rows(idx, la, lb, cfg), la, lb, cfg)
+        want += keys
+    assert rm.counters["partition.keys"] == want and want > 0
 
 
 def test_as_dict_holds_spans_and_counters(traced):
@@ -266,7 +286,11 @@ def rehearsal():
 @pytest.mark.parametrize("name", READERS)
 def test_reader_reads_a_rehearsed_run(rehearsal, name):
     assert rehearsal["correct"] and "jax" not in rehearsal["loaded"]
-    assert rehearsal["readers"][name] > 0 and name in rehearsal["line"]
+    assert name in rehearsal["line"]
+    if name == "stage.sort_ns_per_pair":  # no stage sort remains: bucket_rows orders the rows
+        assert rehearsal["readers"][name] == 0.0
+    else:
+        assert rehearsal["readers"][name] > 0
 
 
 def test_stage_bytes_reader_matches_the_buckets(rehearsal):
