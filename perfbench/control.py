@@ -2,8 +2,9 @@
 """The control of `check.py`'s comparison: the plain reference put in the
 program's place and computed in float32, the precision below the float64
 that the configurations state, then checked as a run checks the program
-(the same inputs and check rows, drawn from each seed, against the float64
-reference). It has to come out not correct.
+(the same inputs and sample, drawn from each seed by the cell's call shape,
+compared by the shape against the float64 reference). It has to come out
+not correct.
 
     python3 perfbench/control.py --workload CELL --seeds 11,12,13
 
@@ -26,11 +27,11 @@ def control_numbers(workload: str, seed: int, scale: float = 1.0) -> dict:
     from perfbench import check, loadgen
 
     w = loadgen.load(loadgen.manifest(), workload, seed, scale)
-    check.select_all(w, seed)
-    lower = check.reference_all(w, np.float32)
-    numbers = check.compare(sorted(lower.items()), check.reference_all(w), 0)
-    return {"workload": workload, "seed": seed, "correct": check.verdict(numbers),
-            "rows": int(sum(len(i.check_rows) for i in w.inputs)), **numbers}
+    w.shape.select(w, seed)
+    lower = w.shape.reference(w, np.float32)
+    numbers = w.shape.compare(sorted(lower.items()), w.shape.reference(w), 0)
+    return {"workload": workload, "seed": seed, "correct": check.verdict(numbers, w.shape.LIMITS),
+            **numbers}
 
 
 def main(argv=None) -> int:

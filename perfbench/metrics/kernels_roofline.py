@@ -1,8 +1,9 @@
 """The kernels' share of their roofline, in %: the least time the card could
-take for the device rows of every call in the traced window
-(`roofline/_bound.py`: the cell's measures and the rows' lengths alone, never
-the program's routes) over the summed device time of every kernel event in
-that window (the plain torch forms on the card included; copies left out)."""
+take for every call in the traced window (each call's least work from the
+cell's call shape, `shapes/<shape>.py:work`, over `roofline/_bound.py`: the
+cell's measures and the rows' lengths alone, never the program's routes)
+over the summed device time of every kernel event in that window (the plain
+torch forms on the card included; copies left out)."""
 from perfbench.roofline import _bound
 
 
@@ -10,10 +11,10 @@ def bound_s(rec):
     """(least seconds, what bounds it) for the calls of the window."""
     nbytes = ops = 0.0
     per_input = {}
+    w = rec.workload
     for c in rec.done():
         if c.input not in per_input:
-            la, lb, asc = rec.workload.inputs[c.input].device_rows()
-            per_input[c.input] = _bound.work(rec.workload.measures, la, lb, asc)
+            per_input[c.input] = w.shape.work(w.measures, w.inputs[c.input])
         b, o = per_input[c.input]
         nbytes += b
         ops += o

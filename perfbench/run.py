@@ -8,18 +8,21 @@ inputs from the seed (`loadgen.py`), builds and loads the kernels the cell's
 routes reach, and warms every input with one call. The window then calls
 the program in a closed loop, one caller, each call starting when the
 previous one has returned its numpy scores, for S seconds (the call running
-at the close finishes and counts):
-  --trace 0  `strsim_tpu_torch.compute_many(measures, a, b)`; the line
-             holds the cell's end-to-end metrics; where one of them comes
-             from the device's trace, the window runs under a profiler that
-             records the device's ops alone;
-  --trace 1  `models.pipeline.compute_scores(a, b, measures,
-             metrics=RunMetrics())` on the same inputs under torch.profiler;
-             the line holds the cell's per-layer metrics, the device's busy
-             and window seconds and a breakdown.
-After the window the scores are checked against the plain reference
-(`check.py`). The last stdout line is one JSON object; the numbers compared,
-each beside its limit, are the last lines on stderr and the line's last key.
+at the close finishes and counts). The call is the cell's call shape's own
+(`shapes/<shape>.py`, named by the traffic file: its `entry`, which calls
+the program's public API):
+  --trace 0  the shape's untraced call; the line holds the cell's
+             end-to-end metrics; where one of them comes from the device's
+             trace, the window runs under a profiler that records the
+             device's ops alone;
+  --trace 1  the shape's traced call, `models.pipeline.compute_scores` with
+             a `RunMetrics`, on the same inputs under torch.profiler; the
+             line holds the cell's per-layer metrics, the device's busy and
+             window seconds and a breakdown.
+After the window what the shape kept of each call is checked against the
+plain reference (the shape's `reference` and `compare`, over `check.py`).
+The last stdout line is one JSON object; the numbers compared, each beside
+the shape's limit, are the last lines on stderr and the line's last key.
 
 Exits non-zero with no result when there is no CUDA device (or fewer than
 the cell asks for), when the program is not the checkout's, and when jax,
@@ -100,7 +103,6 @@ def card_line() -> str:
 def prebuild(workload, cfg) -> list:
     """Build (first run in a checkout) and load the kernel libraries that the
     routes of the cell's buckets reach, and no other. Returns their names."""
-    import numpy as np
     import torch
 
     from strsim_tpu_torch.ops import _build
@@ -108,11 +110,8 @@ def prebuild(workload, cfg) -> list:
 
     ascii_of = {}
     for inp in workload.inputs:
-        la, lb, asc = inp.device_rows()
-        longest = np.maximum(la, lb)
-        for v in np.unique(longest):
-            w = cfg.bucket_for(int(v))
-            ascii_of[w] = ascii_of.get(w, True) and bool(asc[longest == v].all())
+        for w, asc in workload.shape.widths(inp, cfg).items():
+            ascii_of[w] = ascii_of.get(w, True) and asc
     libs = set()
     for width, asc in ascii_of.items():
         if width < 0:
@@ -130,29 +129,10 @@ def prebuild(workload, cfg) -> list:
     return sorted(libs)
 
 
-def make_entry(st, measures, cfg, traced: bool):
-    """The call the window makes: input -> ({measure: f64 scores}, RunMetrics
-    or None)."""
-    if traced:
-        from strsim_tpu_torch.models.pipeline import compute_scores
-        from strsim_tpu_torch.utils.metrics import RunMetrics
-
-        def entry(inp):
-            rm = RunMetrics()
-            res = compute_scores(inp.a, inp.b, measures, config=cfg, metrics=rm)
-            return {m: v for m, (v, _) in res.items()}, rm
-    else:
-        def entry(inp):
-            return st.compute_many(measures, inp.a, inp.b, config=cfg), None
-    return entry
-
-
 def window(entry, workload, seconds: float, span=None):
     """Closed loop over the inputs in turn until `seconds` have passed.
-    Returns (calls, window seconds, [(input, [measures, check rows] scores)],
-    the process's CPU seconds over the window, every thread's)."""
-    import numpy as np
-
+    Returns (calls, window seconds, [(input, what the shape keeps of the
+    call)], the process's CPU seconds over the window, every thread's)."""
     from perfbench.record import Call
 
     calls, got = [], []
@@ -177,7 +157,7 @@ def window(entry, workload, seconds: float, span=None):
         else:
             t1 = time.perf_counter()
             calls.append(Call(input=k % n, rows=inp.rows, wall_s=t1 - t0, run_metrics=rm))
-            got.append((k % n, np.stack([out[m][inp.check_rows] for m in workload.measures])))
+            got.append((k % n, workload.shape.keep(out, inp, workload.measures)))
             del out
         k += 1
         if t1 >= deadline:
@@ -215,10 +195,11 @@ def run(args, fault=None):
     scale = args.scale if args.rehearse else 1.0
 
     workload = loadgen.load(bench, args.workload, args.seed, scale)
-    check.select_all(workload, args.seed)
+    shape = workload.shape
+    shape.select(workload, args.seed)
     libs = [] if args.rehearse else prebuild(workload, st.get_config())
     traced = bool(args.trace)
-    entry = make_entry(st, workload.measures, cfg, traced)
+    entry = shape.entry(st, workload.measures, cfg, traced)
     if fault is not None:
         entry = fault(entry)
     for inp in workload.inputs:  # warm every input: every shape the window uses
@@ -266,13 +247,13 @@ def run(args, fault=None):
             breakdown = trace.breakdown(rec.trace, rec)
 
     t_ref = time.perf_counter()
-    want = check.reference_all(workload)
+    want = shape.reference(workload)
     failed = sum(c.failed for c in calls)
-    numbers = check.compare(got, want, failed)
-    print(f"perfbench: {len(got)} calls checked at {sum(len(i.check_rows) for i in workload.inputs)} "
-          f"rows of {len(workload.inputs)} inputs; reference {time.perf_counter() - t_ref:.2f} s; "
+    numbers = shape.compare(got, want, failed)
+    print(f"perfbench: {len(got)} calls checked over {len(workload.inputs)} inputs "
+          f"({shape.__name__}); reference {time.perf_counter() - t_ref:.2f} s; "
           f"libraries {libs}; setup {setup_s:.3f} s; window {window_s:.3f} s, {len(calls)} calls, "
-          f"{sum(c.rows for c in rec.done()) / window_s:.1f} pairs/s",
+          f"{sum(c.rows for c in rec.done()) / window_s:.1f} rows a second",
           file=sys.stderr)
     walls = np.array([c.wall_s for c in calls])
     half = len(walls) // 2
@@ -292,7 +273,7 @@ def run(args, fault=None):
         print(f"perfbench: forbidden modules loaded: {', '.join(found)}", file=sys.stderr)
         raise SystemExit(4)
     result = {
-        "correct": check.verdict(numbers),
+        "correct": check.verdict(numbers, shape.LIMITS),
         "attempted": len(calls),
         "failed": failed,
         "metrics": read_metrics(bench, args.workload, rec, traced),
@@ -302,7 +283,7 @@ def run(args, fault=None):
         result["breakdown"] = breakdown
     if args.rehearse:
         result["rehearsal"] = True
-    result["checks"] = {k: {"value": v, "limit": check.LIMITS[k]} for k, v in numbers.items()}
+    result["checks"] = {k: {"value": v, "limit": shape.LIMITS[k]} for k, v in numbers.items()}
     return result, rec
 
 

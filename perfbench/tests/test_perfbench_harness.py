@@ -196,9 +196,9 @@ def test_a_cell_added_as_files(tmp_path):
                              "file": "perfbench/configs/short_words.json", "reduced": [], "why": "a test"})
     bench["workloads"].append({"name": "words.three", "config": "short_words", "traffic": "three",
                                "chips": 1, "why": "a test"})
-    for m in bench["end_to_end"]:  # the new cell holds pairs_per_s end to end
-        if m["name"] == "pairs_per_s" and "workloads" in m:
-            m["workloads"].append("words.three")
+    bench["end_to_end"].append(  # the new cell holds pairs_per_s end to end, its reader a file
+        {"name": "pairs_per_s", "unit": "pairs/s", "better": "higher", "bound": 0.25,
+         "source": "host_clock", "workloads": ["words.three"]})
     bench["per_layer"].append({"name": "extra.calls", "unit": "calls", "better": "higher",
                                "source": "host_clock", "layer": "API", "moves": "pairs_per_s",
                                "workloads": ["words.three"]})

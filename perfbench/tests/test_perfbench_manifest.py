@@ -76,6 +76,7 @@ def test_every_name_has_its_files():
         traffic = json.loads((here / "traffic" / f"{w['traffic']}.json").read_text())
         config = json.loads((here / "configs" / f"{w['config']}.json").read_text())
         assert (here / "generators" / f"{config['generator']}.py").is_file()
+        assert (here / "shapes" / f"{traffic['shape']}.py").is_file()
         for m in traffic["measures"]:
             assert (here / "reference" / f"{m}.py").is_file()
             assert (here / "roofline" / f"{m}.py").is_file()

@@ -2,13 +2,14 @@
 per-layer readers take: the device's ops (kernels, copies, sets) and the
 host's, with the harness's own span around each call ("perfbench.call").
 
-`busy_s` is the union of the device ops' intervals, as
-`tools/profile_torch_e2e.py:device_busy_s` computes it (its arithmetic
-copied here). `breakdown` gives the device ops that took the most time and
-the longest idle gaps of the device, each named by what the host was doing:
-the innermost torch op or CUDA runtime call running at the gap's middle, or
-else the phase of the call it falls in (from the call's RunMetrics laps,
-which run in this order: encode, classify, then buckets and finalize).
+`Trace.busy_s` is the union of the device ops' intervals, its own
+arithmetic. `breakdown` gives the device ops that took the most time and
+the longest idle gaps of the device, each named by what the host was doing
+at the gap's middle: the innermost host range open there, a `strsim.*` span
+of the program (`RunMetrics.span`) or a torch op or CUDA runtime call inside
+one; where none is open, the call the middle falls in, by its RunMetrics'
+`encode_wall_s` and `classify_wall_s` (encode, then classify, then the
+buckets and finalize), or the harness between calls.
 """
 from __future__ import annotations
 
