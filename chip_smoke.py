@@ -50,7 +50,12 @@ Phases, one line of findings each (any failure exits non-zero):
      w15 and w31 on int8; the multiset probes K20-K22
      (csrc/probe_multiset.cu, strsim_tpu_torch/probes/multiset.py) at every
      narrow width: K20 in its three modes and K22 with 4 and 8 a-positions a
-     read on int8 and int32, K21 on int8;
+     read on int8 and int32, K21 on int8; K23 (csrc/topk_scan.cu) on BLOCK
+     queries against the 1,105 names of the benchmark's dictionary cell,
+     int8 rows and int32 rows (TOPK_WIDE), jaro and jaro_winkler, k = 5 and
+     8, the names in one shared-memory tile and in five, ids and score bits
+     equal to its plain form's (`check_topk`; its bound
+     roofline.topk_bound);
      with --kernels, the run ends here (an A/B of kernels between two trees
      copies this script into each and runs it there);
   4. end to end: bench.py's make_pairs(1_000_000) and make_wide_pairs(200_000)
@@ -85,6 +90,12 @@ Phases, one line of findings each (any failure exits non-zero):
      equal to the numpy route, and its finalize (native_finalize=True)
      byte-identical to the numpy finalizers on the kernels' stats, all
      fourteen measures;
+     linkage (`run_linkage`): top_k_matches at the dictionary cell's size
+     (1,000,000 queries against its 1,105 names, jaro_winkler, k = 5), the
+     launch counts zeroed just before and read just after (K23 must launch,
+     and on no pairs path), its spans and counters printed, every query's
+     own name first at 1.0 and 4,096 sampled queries byte-identical to the
+     plain route;
      bench_torch.py in this process at a reduced size (200,000 pairs, 3 timed
      passes, 40,000 wide), its launch counts zeroed before and read after
      (K11 and the kernels of its sections must launch), its JSON line
@@ -170,7 +181,24 @@ KERNELS = {
                           "tools/ab_multiset_pallas.py:39"),
     "multiset_swar": ("strsim_tpu_torch/csrc/probe_multiset.cu", "tools/ab_multiset_r3.py:89"),
     "multiset_blocked": ("strsim_tpu_torch/csrc/probe_multiset.cu", "tools/ab_multiset_r3.py:140"),
+    # K23 replaces K2's TPU kernel on the linkage path, which runs it inside
+    # strsim_tpu/models/linkage.py:_scan_scorer's lax.scan over candidate blocks
+    "topk_scan": ("strsim_tpu_torch/csrc/topk_scan.cu", "strsim_tpu/ops/jaro_pallas_scan.py:106"),
 }
+# launched on the linkage path (run_linkage), not on the pairs' main path
+LINKAGE_KERNELS = ("topk_scan",)
+# K23's cases: the benchmark's name-dictionary cell (names.topk.jw.1m), its
+# 1,105 names (perfbench/generators/name_dictionary.py) as the candidates;
+# phase 3 at BLOCK queries, k in TOPK_K, in one shared-memory tile and in
+# tiles of at most TOPK_TILE; its int32 rows take two letters past ASCII
+# (one astral) in every other name; phase 4 at the cell's TOPK_QUERIES
+# queries, k = 5, TOPK_SAMPLE of them against the plain route
+TOPK_NAMES = "data/genealogy_pairs.json"
+TOPK_K = (5, 8)
+TOPK_TILE = 256
+TOPK_WIDE = str.maketrans({"a": "\u00e4", "y": "\U0001F600"})
+TOPK_QUERIES = 1_000_000
+TOPK_SAMPLE = 4_096
 # K11 and the kernels of bench_torch.py's sections (the five measures alone
 # and together on make_pairs, levenshtein, jaro_winkler, jaccard and osa on
 # make_wide_pairs): each must launch on its run
@@ -654,6 +682,111 @@ def check_warm(device, clock_hz: float, rng) -> dict:
     return {"summary": entry, "cases": cases}
 
 
+def dictionary_names(n_queries: int, seed: int):
+    """(queries, dictionary), lists of str: the columns of the benchmark's
+    name-dictionary cell (perfbench/generators/name_dictionary.py) with
+    n_queries queries."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from perfbench.generators.name_dictionary import generate
+
+    queries, dictionary = generate(n_queries, seed, rows=TOPK_NAMES)
+    return queries.tolist(), dictionary.tolist()
+
+
+def event_call(fn):
+    """(fn(), its ms by CUDA events), one call, no warm-up."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_topk(device, clock_hz: float) -> dict:
+    """K23 against its plain form (`topk_cuda.topk_plain`) on the card,
+    exactly (ids and the scores' bits), on BLOCK queries against the 1,105
+    names of the benchmark's dictionary cell, the queries in length order as
+    the linkage orders them: int8 rows as the cell has them and int32 rows
+    (TOPK_WIDE), jaro and jaro_winkler, k in TOPK_K, the dictionary in one
+    shared-memory tile and in tiles of TOPK_TILE. Each case's event time
+    beside the plain form's and the bound (`roofline.topk_bound`, from these
+    rows' lengths). Returns {"summary": the kernel's summed entry, "cases":
+    [(record, launch)]}."""
+    from functools import partial
+
+    import torch
+
+    from strsim_tpu_torch.ops import topk_cuda
+    from strsim_tpu_torch.ops.roofline import topk_bound
+    from strsim_tpu_torch.utils import encode as enc
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    queries, dictionary = dictionary_names(BLOCK, SEED)
+    wide = {x: x.translate(TOPK_WIDE) for x in dictionary[::2]}
+    entry = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}}
+    cases = []
+    for dtype, qs, cs in (("int8", queries, dictionary),
+                          ("int32", [wide.get(x, x) for x in queries],
+                           [wide.get(x, x) for x in dictionary])):
+        q, c = enc.encode_column(qs, pad=enc.PAD_A), enc.encode_column(cs, pad=enc.PAD_B)
+        if q.codes.dtype != np.dtype(dtype) or c.codes.dtype != np.dtype(dtype):
+            raise AssertionError(f"K23 {dtype}: encoded as {q.codes.dtype} / {c.codes.dtype}")
+        alphabet, c_idx = topk_cuda.candidate_indices(c.codes, c.lengths)
+        args = {"q_codes": dev(q.codes), "q_len": dev(q.lengths),
+                "q_rows": dev(np.argsort(q.lengths, kind="stable").astype(np.int64)),
+                "c_idx": dev(c_idx), "c_len": dev(c.lengths),
+                "c_ids": dev(np.arange(c.n, dtype=np.int32)), "alphabet": dev(alphabet)}
+        plain_args = (args["q_codes"], args["q_len"], dev(c.codes), args["c_len"],
+                      torch.arange(c.n, device=device))
+        names = set(cs)
+        equal_len = np.array([len(x) for x in qs if x in names], dtype=np.int64)
+        for winkler in (True, False):
+            measure = "jaro_winkler" if winkler else "jaro"
+            for k in TOPK_K:
+                (want_i, want_s), p_ms = event_call(
+                    lambda: topk_cuda.topk_plain(*plain_args, k, winkler))
+                want_s = torch.where(torch.isinf(want_s), float("nan"), want_s)
+                b_ms, b_by = topk_bound(q.lengths, c.lengths, q.codes.itemsize, k, winkler,
+                                        clock_hz, equal_len)
+                for tile in (0, TOPK_TILE):
+                    tiles = -(-c.n // (tile or topk_cuda.max_tile(alphabet.size)))
+                    out_i = torch.full((q.n, k), -1, dtype=torch.int64, device=device)
+                    out_s = torch.full((q.n, k), float("nan"), dtype=torch.float64, device=device)
+                    launch = partial(topk_cuda.topk_scan, **args, k=k, out_idx=out_i,
+                                     out_score=out_s, winkler=winkler, tile=tile)
+                    launch()
+                    torch.cuda.synchronize()
+                    same_s = out_s.cpu().numpy().tobytes() == want_s.cpu().numpy().tobytes()
+                    if not (torch.equal(out_i, want_i) and same_s):
+                        bad = int(torch.nonzero(((out_i != want_i)
+                                                 | ~((out_s == want_s)
+                                                     | (out_s.isnan() & want_s.isnan()))).any(1))[0])
+                        raise AssertionError(
+                            f"topk_scan {measure} k{k} tile {tile} {dtype}: K23 != plain at query {qs[bad]!r}: ids "
+                            f"{out_i[bad].tolist()} want {want_i[bad].tolist()}, scores "
+                            f"{out_s[bad].tolist()} want {want_s[bad].tolist()}")
+                    k_ms = time_ms(launch, 5)
+                    record = {"name": "topk_scan",
+                              "flags": {"measure": measure, "k": f"k{k}", "tiles": f"{tiles} tile{'s' * (tiles > 1)}"},
+                              "width": q.codes.shape[1], "dtype": dtype, "rows": q.n,
+                              "candidates": c.n, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                              "bound_by": b_by}
+                    record["label"] = case_label(record)
+                    cases.append((record, launch))
+                    for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms)):
+                        entry[key] += v
+                    entry["bound_by"][b_by] = entry["bound_by"].get(b_by, 0) + 1
+    return {"summary": entry, "cases": cases}
+
+
 def print_residency() -> None:
     """K2's residency at each ladder width (one instantiation each) and
     dtype, with and without the prefix: blocks an SM holds by the occupancy
@@ -776,12 +909,14 @@ def check_kernels(device, clock_hz: float, only=None):
                     entry["plain_ms"] += p_ms
                     entry["bound_ms"] += b_ms
                     entry["bound_by"][b_by] = entry["bound_by"].get(b_by, 0) + 1
-    if only is None or "warm" in only:
-        warm_cases = check_warm(device, clock_hz, rng)
-        summary["warm"] = warm_cases.pop("summary")
-        for record, launch in warm_cases["cases"]:
-            cases.append(record)
-            launches.append((record["label"], launch))
+    for name, check in (("warm", lambda: check_warm(device, clock_hz, rng)),
+                        ("topk_scan", lambda: check_topk(device, clock_hz))):
+        if only is None or name in only:
+            found = check()
+            summary[name] = found.pop("summary")
+            for record, launch in found["cases"]:
+                cases.append(record)
+                launches.append((record["label"], launch))
     with DeviceTimes(5) as device_times:  # each case's kernel again, 5 launches
         for label, launch in launches:
             with device_times.recording(label):
@@ -802,6 +937,8 @@ def check_kernels(device, clock_hz: float, only=None):
                 extra += f", route (jaro_match_stats) {record['route_ms']:.4f} ms"
             if "library_ms" in record:
                 extra += f", library (torch.add) {record['library_ms']:.4f} ms"
+            if "candidates" in record:
+                extra += f", against {record['candidates']} candidates"
             print(f"  {case_label(record):42s} rows {record['rows']}: exact, kernel {record['ms']:.4f} ms "
                   f"(device {record['device_ms']:.4f} ms), plain {record['plain_ms']:.3f} ms, "
                   f"bound {record['bound_ms']:.4f} ms ({record['bound_by']}){extra}", flush=True)
@@ -1179,6 +1316,57 @@ def check_golden_and_demo(st) -> None:
           "and the default config; demo table exact", flush=True)
 
 
+def run_linkage(st) -> dict:
+    """The linkage path at the benchmark cell's size: top_k_matches over
+    TOPK_QUERIES queries against the 1,105-name dictionary (jaro_winkler,
+    k = 5), the launch counts zeroed just before and read just after (K23
+    must launch, no probe), the call's spans and counters printed; every
+    query (each is a dictionary name) first matches its own name at 1.0,
+    and TOPK_SAMPLE queries drawn from the seed hold ids and scores exactly
+    equal to the plain route's (`topk_cuda.topk_plain` on the card). Returns
+    the launch counts."""
+    import torch
+
+    from strsim_tpu_torch.ops import _build, topk_cuda
+    from strsim_tpu_torch.utils import encode as enc
+    from strsim_tpu_torch.utils.metrics import RunMetrics
+
+    queries, dictionary = dictionary_names(TOPK_QUERIES, SEED + 1)
+    rm = RunMetrics()
+    _build.reset_launch_counts()
+    (idx, scores), dt = _timed(lambda: st.top_k_matches(queries, dictionary, "jaro_winkler", 5,
+                                                        metrics=rm))
+    counts = require_launched("the linkage path", LINKAGE_KERNELS)
+    require_not_launched("the linkage path", PROBE_ONLY)
+    pairs = len(queries) * len(dictionary)
+    print(f"  linkage: top_k_matches {len(queries)} queries x {len(dictionary)} names "
+          f"(jaro_winkler, k = 5) in {dt:.3f} s = {pairs / dt:.4g} pairs/s; spans s "
+          + ", ".join(f"{name.removeprefix('strsim.topk.')} {rm.span_s(name):.4f}"
+                      for name in ("strsim.topk.encode", "strsim.topk.stage", "strsim.topk.launch",
+                                   "strsim.topk.collect", "strsim.topk.finish"))
+          + f"; counters {rm.counters}; launches {counts}", flush=True)
+    if rm.counters.get("topk.pairs") != pairs:
+        raise AssertionError(f"linkage: topk.pairs {rm.counters} against {pairs} pairs")
+    own = np.array(dictionary, dtype=object)[idx[:, 0]]
+    if not ((scores[:, 0] == 1.0).all() and (own == np.array(queries, dtype=object)).all()):
+        raise AssertionError("linkage: a query's first match is not its own name at 1.0")
+    rows = np.sort(np.random.default_rng(SEED).choice(len(queries), TOPK_SAMPLE, replace=False))
+    device = torch.device("cuda", 0)
+    q = enc.encode_column([queries[r] for r in rows], pad=enc.PAD_A)
+    c = enc.encode_column(dictionary, pad=enc.PAD_B)
+    T = torch.from_numpy
+    want_i, want_s = topk_cuda.topk_plain(T(q.codes).to(device), T(q.lengths).to(device),
+                                          T(c.codes).to(device), T(c.lengths).to(device),
+                                          torch.arange(c.n, device=device), 5, True)
+    want_s = torch.where(torch.isinf(want_s), float("nan"), want_s).cpu().numpy()
+    if not (np.array_equal(idx[rows], want_i.cpu().numpy())
+            and scores[rows].tobytes() == want_s.tobytes()):
+        raise AssertionError("linkage: top_k_matches differs from the plain route on its sample")
+    print(f"  linkage: every query's own name first at 1.0; {TOPK_SAMPLE} sampled queries' ids and "
+          "scores byte-identical to the plain route", flush=True)
+    return counts
+
+
 def stop_children() -> None:
     """Stop and reap every process this one started that is still alive: the
     oracle pool's workers, multiprocessing's resource tracker (which some
@@ -1271,9 +1459,10 @@ def main(argv) -> int:
     _build.reset_launch_counts()
     scores, five_metrics, all_metrics, jaccard_metrics, jaro_metrics = run_workloads(st, workloads)
     launches = require_launched("the main path", [k for k in (*KERNELS, *VARIANTS) if k not in
-                                                  (*FORCED_KERNELS, *BENCH_ONLY, *PROBE_ONLY)])
+                                                  (*FORCED_KERNELS, *BENCH_ONLY, *PROBE_ONLY,
+                                                   *LINKAGE_KERNELS)])
     print(f"  launches on the main path: {launches}", flush=True)
-    require_not_launched("the main path", PROBE_ONLY)
+    require_not_launched("the main path", (*PROBE_ONLY, *LINKAGE_KERNELS))
     for label, *_ in workloads:
         pass_reckoning(label, "five", FIVE, five_metrics[label], cases, st.get_config().impls())
         pass_reckoning(label, "all 14", ALL, all_metrics[label], cases, st.get_config().impls())
@@ -1310,6 +1499,7 @@ def main(argv) -> int:
     check_golden_and_demo(st)
     check_native(st, workloads, oracle_sets)
     del workloads, scores
+    launches.update((k, v) for k, v in run_linkage(st).items() if k in LINKAGE_KERNELS)
 
     print(f"  bench_torch.py {' '.join(BENCH_ARGS)}:", flush=True)
     import bench_torch

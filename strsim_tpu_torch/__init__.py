@@ -42,6 +42,7 @@ from strsim_tpu_torch.api import (
     sorensen_dice,
     sorensen_dice_bigram,
     soundex,
+    top_k_matches,
 )
 from strsim_tpu_torch.config import StrsimConfig, get_config, set_config
 from strsim_tpu_torch.models.measures import MEASURES
@@ -64,6 +65,7 @@ __all__ = [
     "compute",
     "compute_many",
     "compute_with_validity",
+    "top_k_matches",
     "lit",
     "Literal",
     "StrsimConfig",

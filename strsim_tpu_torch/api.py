@@ -4,7 +4,9 @@ points.
 Mirrors `strsim_tpu/api.py` for array-like columns (lists, numpy arrays,
 anything with to_list): each function returns a float64 numpy array with NaN
 at null rows. A plain Python str argument is a broadcast literal, as is
-`lit(...)`. The polars expression layer is not part of this package yet.
+`lit(...)`. `top_k_matches` (models/linkage.py) gives each query's k best
+candidates of a second column. The polars expression layer is not part of
+this package yet.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from strsim_tpu_torch.config import StrsimConfig
+from strsim_tpu_torch.models.linkage import top_k_matches  # noqa: F401 (public API)
 from strsim_tpu_torch.models.measures import resolve_measures
 from strsim_tpu_torch.models.pipeline import compute_scores
 

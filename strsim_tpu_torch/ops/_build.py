@@ -102,6 +102,12 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
         {"strsim_levenshtein_wavefront": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P]},
     ),
     "warm": ("warm.cu", {"strsim_warm": [_P, _P, _LL, _P]}),
+    "topk_scan": (  # K23, the linkage's top k (ops/topk_cuda.py, models/linkage.py)
+        "topk_scan.cu",
+        {"strsim_topk_scan": [_P, _LL, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                              _I, _P],
+         "strsim_topk_max_tile": [_I, _I]},
+    ),
     "probe_jaro": (  # K12-K15, the jaro probes (probes/jaro.py); on no engine path
         "probe_jaro.cu",
         {

@@ -141,6 +141,38 @@ def bound(name: str, flags: dict, lens, elem_bytes: int, out_bytes: int, clock_h
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+def topk_bound(q_len, c_len, elem_bytes: int, k: int, winkler: bool, clock_hz: float,
+               equal_len=()):
+    """(ms, "bytes" or "operations") of K23's top k (csrc/topk_scan.cu) of
+    queries of lengths q_len against candidates of lengths c_len: each
+    query's and candidate's chars and length read once and [Q, k] int64 ids
+    and float64 scores written once, over the memory rate, against the
+    integer operations over the INT32 peak: the jaro greedy of every pair
+    with both sides non-empty (JARO_OPS and one equality-word read a window
+    word and step), with the capped prefix for jaro_winkler, less the pairs
+    of equal strings (their lengths `equal_len`: the row conventions decide
+    them), and each candidate's table (one operation a char) once, not once
+    a pair. Summed over the grid of lengths, never pair by pair."""
+    ql, qn = np.unique(np.asarray(q_len, dtype=np.int64), return_counts=True)
+    cl, cn = np.unique(np.asarray(c_len, dtype=np.int64), return_counts=True)
+
+    def pair_ops(la, lb):
+        steps, win = _jaro_window(la, lb)
+        ops = (JARO_OPS + 1) * win * steps
+        if winkler:
+            ops = ops + np.minimum(np.minimum(la, lb), 4)
+        return np.where((la > 0) & (lb > 0), ops, 0)
+
+    eq = np.asarray(equal_len, dtype=np.int64)
+    ops = (float(np.sum(qn[:, None] * cn[None, :] * pair_ops(ql[:, None], cl[None, :])))
+           - float(np.sum(pair_ops(eq, eq))) + float(np.sum(cn * cl)))
+    nbytes = (float(np.sum((ql * elem_bytes + 4) * qn) + np.sum((cl * elem_bytes + 4) * cn))
+              + 16.0 * float(np.sum(qn)) * k)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (INT32_LANES * clock_hz)
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
 # The full dynamic program's own floor (K10, csrc/levenshtein_wavefront.cu):
 # its cells at DP_CELL_OPS integer operations each (the char compare and its
 # add, one DPX min within the column, one on the chain down the strip), over

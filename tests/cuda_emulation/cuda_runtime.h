@@ -1,7 +1,8 @@
 // A CPU stand-in for the CUDA runtime pieces that the lane-group kernels use
 // (csrc/dp_scan.cuh, csrc/jaro_scan.cu, csrc/lev_jaro_fused.cu,
 // csrc/bigram.cu, csrc/multiset.cu, csrc/probe_jaro.cu, csrc/jaro_flags.cu,
-// csrc/levenshtein_wavefront.cu), so that their logic
+// csrc/levenshtein_wavefront.cu) and the linkage's top k (csrc/topk_scan.cu),
+// so that their logic
 // runs where there is no card:
 // tests/test_torch_lane_kernels_cpu.py compiles those sources with g++
 // against this header, as cuda_runtime.h. One std::thread per CUDA thread,
@@ -119,6 +120,9 @@ struct EmuRendezvous {
 
 struct EmuBlock {
   std::mutex m;
+  std::condition_variable barrier_cv;  // __syncthreads: every thread of the block
+  int barrier_arrived = 0;
+  unsigned long barrier_generation = 0;
   std::map<std::pair<int, unsigned>, std::unique_ptr<EmuRendezvous>> rendezvous;
   std::atomic<unsigned> exited[32];  // per warp, the lanes that returned
   unsigned char* smem = nullptr;
@@ -204,6 +208,25 @@ inline void __syncwarp(unsigned mask = 0xFFFFFFFFu) {
   uint64_t v[32];
   emu_collect(mask, 0, v);
 }
+
+// a block-wide barrier; every thread of the block must reach it
+inline void __syncthreads() {
+  std::unique_lock<std::mutex> lock(emu_block->m);
+  const unsigned long generation = emu_block->barrier_generation;
+  if (++emu_block->barrier_arrived == (int)blockDim.x) {
+    emu_block->barrier_arrived = 0;
+    ++emu_block->barrier_generation;
+    emu_block->barrier_cv.notify_all();
+  } else {
+    emu_block->barrier_cv.wait(lock, [&] { return emu_block->barrier_generation != generation; });
+  }
+}
+
+// IEEE double operations rounded to nearest, never contracted (the host
+// compiles without FMA contraction)
+inline double __dadd_rn(double x, double y) { return x + y; }
+inline double __dmul_rn(double x, double y) { return x * y; }
+inline double __ddiv_rn(double x, double y) { return x / y; }
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 // 0xFF in each byte where x and y differ

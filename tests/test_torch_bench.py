@@ -96,7 +96,7 @@ def test_chip_smoke_holds_no_second_copy_of_the_bound():
     for name in ("work_ops", "bound", "route_flags", "HBM_BYTES_PER_S", "INT32_LANES", "MYERS_OPS"):
         assert not hasattr(chip_smoke, name), name
         assert not re.search(rf"^(def {name}\b|{name} =)", source, re.M), name
-    assert "warm" in chip_smoke.KERNELS and len(chip_smoke.KERNELS) == 22  # K1-K11, K12-K22
+    assert "warm" in chip_smoke.KERNELS and len(chip_smoke.KERNELS) == 23  # K1-K11, K12-K22, K23
 
 
 _POOL_THEN_STOP = """
