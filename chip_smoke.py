@@ -9,11 +9,13 @@ Phases, one line of findings each (any failure exits non-zero):
      and where Python.h lies (the native library's str-object routes need it);
   2. build: every CUDA kernel from csrc/ (K11 csrc/warm.cu among them), one
      nvcc per source in parallel, and the native host library (g++), each
-     build's time (each library's `-Xptxas -v` log to
-     chiprun_out/ptxas/<library>.log), and each K9 and K10 instantiation's
-     registers, stack frame and spills (without --kernels, a K10
-     instantiation with a stack frame or a spill fails: its DP state belongs
-     in registers);
+     build's time (each library's `-Xptxas -v` log, kept beside the
+     library when it was built, to chiprun_out/ptxas/<library>.log, whether
+     this run built it or found it built), and each K9, K10 and K23
+     instantiation's registers, stack frame and spills (without --kernels,
+     a missing report fails, as does a K10 instantiation with a stack frame
+     or a spill, whose DP state belongs in registers, and a K23
+     instantiation that spills);
   3. kernels: each kernel against its plain torch version on the card, at the
      main path's shapes (65536-row blocks at each ladder width it serves, int8
      and int32 tiles, seeded inputs incl. astral codepoints and the rows of
@@ -55,7 +57,9 @@ Phases, one line of findings each (any failure exits non-zero):
      int8 rows and int32 rows (TOPK_WIDE), jaro and jaro_winkler, k = 5 and
      8, the names in one shared-memory tile and in five, ids and score bits
      equal to its plain form's (`check_topk`; its bound
-     roofline.topk_bound);
+     roofline.topk_bound); and at the cell's size (`check_topk_cell`:
+     1,000,000 queries, int8, jaro_winkler, k = 5; sampled queries against
+     the plain form), with its greedy share and ptxas lines;
      with --kernels, the run ends here (an A/B of kernels between two trees
      copies this script into each and runs it there);
   4. end to end: bench.py's make_pairs(1_000_000) and make_wide_pairs(200_000)
@@ -282,18 +286,31 @@ def ptxas_kernels(log: str) -> list:
     return [tuple(k) for k in found]
 
 
-def print_forced_ptxas(built: dict, strict: bool) -> None:
-    """Registers, stack frame and spills of each instantiation of K9 and K10
-    built here; if `strict`, every K10 instantiation must keep its DP state
-    in registers (no stack frame, no spill)."""
-    for name, kernel in (("jaro_flags", "K9"), ("levenshtein_wavefront", "K10")):
-        if name not in built:
-            continue
-        for fn, regs, frame, stores, loads in ptxas_kernels(built[name][1]):
+def print_forced_ptxas(logs: dict, strict: bool) -> list:
+    """Registers, stack frame and spills of each instantiation of K9, K10
+    and K23, from `logs` ({library: its nvcc log}); if `strict`, each of the
+    three must have a report, every K10 instantiation must keep its DP state
+    in registers (no stack frame, no spill), and no K23 instantiation may
+    spill. Returns K23's [(kernel, registers, stack frame, spill stores,
+    spill loads)]."""
+    topk = []
+    for name, kernel in (("jaro_flags", "K9"), ("levenshtein_wavefront", "K10"),
+                         ("topk_scan", "K23")):
+        found = ptxas_kernels(logs.get(name, ""))
+        if not found:
+            print(f"  {kernel}: no ptxas report in {name}'s build log", flush=True)
+            if strict:
+                raise AssertionError(f"{kernel}: no ptxas report in {name}'s build log")
+        for fn, regs, frame, stores, loads in found:
             print(f"  {kernel} {fn}: registers {regs}, stack frame {frame} B, spill stores "
                   f"{stores} B, spill loads {loads} B", flush=True)
+            if kernel == "K23":
+                topk.append((fn, regs, frame, stores, loads))
             if strict and kernel == "K10" and frame + stores + loads:
                 raise AssertionError(f"K10 {fn}: {frame} B stack frame, {stores + loads} B spilled")
+            if strict and kernel == "K23" and stores + loads:
+                raise AssertionError(f"K23 {fn}: {stores + loads} B spilled")
+    return topk
 
 
 def ptxas_summary(log: str) -> str:
@@ -787,6 +804,65 @@ def check_topk(device, clock_hz: float) -> dict:
     return {"summary": entry, "cases": cases}
 
 
+def check_topk_cell(device, clock_hz: float, ptxas: list) -> tuple:
+    """K23 at the benchmark cell's size: TOPK_QUERIES queries against the
+    1,105 names (int8 rows, jaro_winkler, k = 5), in length order as the
+    linkage orders them; its count of greedy pairs over all pairs (the
+    greedy share), every query's own name first at 1.0 and TOPK_SAMPLE
+    sampled queries' ids and score bits equal to the plain form's; its
+    event time beside the bound (`roofline.topk_bound`). `ptxas`: K23's
+    (kernel, registers, stack frame, spill stores, spill loads), from phase
+    2's build. Returns (record, launch)."""
+    from functools import partial
+
+    import torch
+
+    from strsim_tpu_torch.ops import topk_cuda
+    from strsim_tpu_torch.ops.roofline import topk_bound
+    from strsim_tpu_torch.utils import encode as enc
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    queries, dictionary = dictionary_names(TOPK_QUERIES, SEED + 2)
+    q, c = enc.encode_column(queries, pad=enc.PAD_A), enc.encode_column(dictionary, pad=enc.PAD_B)
+    alphabet, c_idx = topk_cuda.candidate_indices(c.codes, c.lengths)
+    out_i = torch.full((q.n, 5), -1, dtype=torch.int64, device=device)
+    out_s = torch.full((q.n, 5), float("nan"), dtype=torch.float64, device=device)
+    launch = partial(topk_cuda.topk_scan, dev(q.codes), dev(q.lengths),
+                     dev(np.argsort(q.lengths, kind="stable").astype(np.int64)), dev(c_idx),
+                     dev(c.lengths), dev(np.arange(c.n, dtype=np.int32)), dev(alphabet), 5, out_i,
+                     out_s, True)
+    greedy = torch.zeros(1, dtype=torch.int64, device=device)
+    launch(greedy_pairs=greedy)
+    torch.cuda.synchronize()
+    pairs = q.n * c.n
+    share = int(greedy) / pairs
+    idx, scores = out_i.cpu().numpy(), out_s.cpu().numpy()
+    own = np.array(dictionary, dtype=object)[idx[:, 0]]
+    if not ((scores[:, 0] == 1.0).all() and (own == np.array(queries, dtype=object)).all()):
+        raise AssertionError("topk_scan at the cell's size: a query's first match is not its own name")
+    rows = np.sort(np.random.default_rng(SEED).choice(q.n, TOPK_SAMPLE, replace=False))
+    want_i, want_s = topk_cuda.topk_plain(dev(q.codes[rows]), dev(q.lengths[rows]), dev(c.codes),
+                                          dev(c.lengths), torch.arange(c.n, device=device), 5, True)
+    want_s = torch.where(torch.isinf(want_s), float("nan"), want_s).cpu().numpy()
+    if not (np.array_equal(idx[rows], want_i.cpu().numpy())
+            and scores[rows].tobytes() == want_s.tobytes()):
+        raise AssertionError("topk_scan at the cell's size: K23 != plain on the sampled queries")
+    k_ms = time_ms(launch, 5)
+    names = set(dictionary)
+    equal_len = np.array([len(x) for x in queries if x in names], dtype=np.int64)
+    b_ms, b_by = topk_bound(q.lengths, c.lengths, q.codes.itemsize, 5, True, clock_hz, equal_len)
+    record = {"name": "topk_scan", "flags": {"measure": "jaro_winkler", "k": "k5", "tiles": "cell"},
+              "width": q.codes.shape[1], "dtype": str(q.codes.dtype), "rows": q.n,
+              "candidates": c.n, "ms": k_ms, "plain_ms": float("nan"), "bound_ms": b_ms, "bound_by": b_by,
+              "greedy_pairs": int(greedy), "greedy_share": share,
+              "ptxas": [dict(zip(("kernel", "registers", "stack_frame", "spill_stores",
+                                  "spill_loads"), k)) for k in ptxas]}
+    record["label"] = case_label(record)
+    return record, launch
+
+
 def print_residency() -> None:
     """K2's residency at each ladder width (one instantiation each) and
     dtype, with and without the prefix: blocks an SM holds by the occupancy
@@ -829,9 +905,10 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def check_kernels(device, clock_hz: float, only=None):
+def check_kernels(device, clock_hz: float, only=None, topk_ptxas=()):
     """Every kernel (or those named in `only`) against its plain version on
-    the same card tensors. Returns ({name: {max_abs_err, ms, plain_ms,
+    the same card tensors; K23 also at the benchmark cell's size
+    (`check_topk_cell`, with `topk_ptxas`, its ptxas lines). Returns ({name: {max_abs_err, ms, plain_ms,
     bound_ms, bound_by}}, the times summed over the name's cases; [one
     record per case], each also with `device_ms`, the kernel's own device
     time a launch from torch.profiler, beside `ms` from CUDA events)."""
@@ -917,6 +994,10 @@ def check_kernels(device, clock_hz: float, only=None):
             for record, launch in found["cases"]:
                 cases.append(record)
                 launches.append((record["label"], launch))
+    if only is None or "topk_scan" in only:
+        record, launch = check_topk_cell(device, clock_hz, topk_ptxas)
+        cases.append(record)
+        launches.append((record["label"], launch))
     with DeviceTimes(5) as device_times:  # each case's kernel again, 5 launches
         for label, launch in launches:
             with device_times.recording(label):
@@ -939,8 +1020,16 @@ def check_kernels(device, clock_hz: float, only=None):
                 extra += f", library (torch.add) {record['library_ms']:.4f} ms"
             if "candidates" in record:
                 extra += f", against {record['candidates']} candidates"
+            if "greedy_share" in record:
+                extra += (f", greedy share {100 * record['greedy_share']:.3f} % "
+                          f"({record['greedy_pairs']} pairs), ptxas " + "; ".join(
+                              f"{k['kernel']}: {k['registers']} registers, {k['stack_frame']} B "
+                              f"stack, {k['spill_stores']} + {k['spill_loads']} B spilled"
+                              for k in record["ptxas"]))
+            plain = ("plain on a sample" if np.isnan(record["plain_ms"])
+                     else f"plain {record['plain_ms']:.3f} ms")
             print(f"  {case_label(record):42s} rows {record['rows']}: exact, kernel {record['ms']:.4f} ms "
-                  f"(device {record['device_ms']:.4f} ms), plain {record['plain_ms']:.3f} ms, "
+                  f"(device {record['device_ms']:.4f} ms), {plain}, "
                   f"bound {record['bound_ms']:.4f} ms ({record['bound_by']}){extra}", flush=True)
     for entry in summary.values():  # what bounds most of the name's cases
         entry["bound_by"] = max(entry["bound_by"], key=entry["bound_by"].get)
@@ -1431,10 +1520,11 @@ def main(argv) -> int:
           f"{time.perf_counter() - t0:.1f} s (built here: "
           f"{', '.join(f'{k} {v[0]:.1f} s' for k, v in sorted(built.items()))})", flush=True)
     (OUT_DIR / "ptxas").mkdir(parents=True, exist_ok=True)
-    for name, (_, log) in sorted(built.items()):
+    logs = {name: _build.build_log(name) for name in _build.LIBRARIES}  # built here or before
+    for name, log in sorted(logs.items()):
         (OUT_DIR / "ptxas" / f"{name}.log").write_text(log)  # each kernel's registers and spills
         print(f"  ptxas {name}: {ptxas_summary(log)}")
-    print_forced_ptxas(built, strict=only is None)
+    topk_ptxas = print_forced_ptxas(logs, strict=only is None)
     t0 = time.perf_counter()
     native_build.get_lib()
     print(f"  native host library {native_build.target().name} ready in "
@@ -1444,7 +1534,7 @@ def main(argv) -> int:
     print("phase 3 kernels vs plain torch on the card:", flush=True)
     if only is None or "jaro_scan" in only:
         print_residency()
-    summary, cases = check_kernels(device, clock_hz, only)
+    summary, cases = check_kernels(device, clock_hz, only, topk_ptxas)
     if only is not None:
         return 0 if set(only) <= set(summary) else 2
 

@@ -8,10 +8,11 @@ queries against a column of candidates. The counterpart of
      the pairs pipeline's ladder), so that neighbouring queries take the
      same number of greedy steps;
   3. jaro and jaro_winkler on the card: K23 (csrc/topk_scan.cu,
-     ops/topk_cuda.py) scores every query against every candidate with the
-     candidates in shared-memory tiles, keeps each query's top k on the
-     device, with exact float64 scores, and writes each query's row of the
-     result in place; rows K23 does not take (longer than
+     ops/topk_cuda.py) screens every query against every candidate with the
+     candidates in shared-memory tiles, runs the greedy match on the pairs
+     that could enter a top k, keeps each query's top k on the device, with
+     exact float64 scores, and writes each query's row of the result in
+     place; rows K23 does not take (longer than
      `topk_cuda.MAX_LEN`, k above `topk_cuda.MAX_K`, more candidate chars
      than `topk_cuda.MAX_ALPHABET`) take the plain torch route on the
      device, tile by tile, with the same scores, merge and tie rule;
@@ -68,7 +69,9 @@ def top_k_matches(
     the plain route's); None: as many as K23's shared memory holds, 1,024 on
     the plain route. `metrics`: a utils.metrics.RunMetrics for the call's
     spans ("strsim.topk" and its parts) and counters ("topk.pairs",
-    "topk.lane_pairs", "topk.launches")."""
+    "topk.lane_pairs", "topk.launches", and where K23 ran,
+    "topk.greedy_pairs": the pairs it ran the greedy match for, read back
+    from the device)."""
     cfg = config or get_config()
     device = pipeline._device(cfg)
     (measure,) = resolve_measures(measure)
@@ -84,11 +87,14 @@ def top_k_matches(
                     np.full((q.n, kk), np.nan, dtype=np.float64))
         with maybe_span(metrics, "strsim.topk.stage"):
             plan = _stage(q, c, measure, kk, cfg, device)
+        greedy = None
         with maybe_span(metrics, "strsim.topk.launch"):
             if plan["k23"] is not None:
+                if metrics is not None:
+                    greedy = torch.zeros(1, dtype=torch.int64, device=device)
                 topk_cuda.topk_scan(**plan["k23"], k=kk, out_idx=plan["idx"],
                                     out_score=plan["score"], winkler=JARO_FAMILY[measure],
-                                    tile=candidate_block or 0)
+                                    tile=candidate_block or 0, greedy_pairs=greedy)
                 _count(metrics, plan["pairs"], plan["lane_pairs"], 1)
         pending = []
         if plan["rest"]:
@@ -100,6 +106,8 @@ def top_k_matches(
         with maybe_span(metrics, "strsim.topk.collect"):
             # waits for the device; [Q, k], rows in query order
             idx, score = download(plan["idx"]), download(plan["score"])
+            if greedy is not None:
+                metrics.count("topk.greedy_pairs", int(greedy.item()))
         with maybe_span(metrics, "strsim.topk.finish"):
             for q_rows, ids, scores in pending:
                 to_query_order(idx, score, q_rows, ids, scores)

@@ -9,8 +9,10 @@ C interface (no PyTorch headers, so a build takes seconds, not minutes):
 BUILD_DIR is build/strsim_tpu_torch/ in a source checkout (see `_build_dir`).
 
 The file name carries a hash of the source and the flags, so an edited kernel
-never loads a stale build. Nothing builds at import time: a wrapper's first
-launch calls `library()`, and `build_all()` starts every nvcc at once.
+never loads a stale build; nvcc's log (`-Xptxas -v`: each kernel's registers,
+stack frame and spills) is kept beside it as <name>-<hash>.log (`build_log`).
+Nothing builds at import time: a wrapper's first launch calls `library()`,
+and `build_all()` starts every nvcc at once.
 
 The wrappers launch through `launch`, which counts each launch under the
 kernel's name, so a run can show that its main path went through each
@@ -105,7 +107,7 @@ LIBRARIES: Dict[str, Tuple[str, Dict[str, list]]] = {
     "topk_scan": (  # K23, the linkage's top k (ops/topk_cuda.py, models/linkage.py)
         "topk_scan.cu",
         {"strsim_topk_scan": [_P, _LL, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
-                              _I, _P],
+                              _P, _I, _P],
          "strsim_topk_max_tile": [_I, _I]},
     ),
     "probe_jaro": (  # K12-K15, the jaro probes (probes/jaro.py); on no engine path
@@ -188,6 +190,7 @@ def _compile(names: List[str]) -> Dict[str, Tuple[float, str]]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
         built[name] = (time.perf_counter() - t0, log)
     if failed:
@@ -203,6 +206,13 @@ def build_all() -> Dict[str, Tuple[float, str]]:
     for name in LIBRARIES:
         library(name)
     return built
+
+
+def build_log(name: str) -> str:
+    """nvcc's log of library `name`'s build, whether this process built it
+    or found it built ("" where the library is not built)."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -23,7 +23,7 @@ from strsim_tpu_torch.ops.jaro_cuda import jaro_plain
 MAX_LEN = 32          # K23's longest query or candidate (one 32-bit word)
 MAX_K = 8             # K23's largest k
 MAX_ALPHABET = 253    # K23's most distinct candidate chars (byte indices)
-THREADS = 1024        # K23's queries a block (csrc/topk_scan.cu: kTopkThreads)
+THREADS = 640         # K23's queries a block (csrc/topk_scan.cu: kTopkThreads)
 CAND_PAD = 0xFE       # past a candidate's length in its index row
 PAIRS_A_TILE = 1 << 16  # the plain route's pairs a step
 
@@ -48,7 +48,8 @@ def max_tile(alphabet_size: int, threads: int = 0) -> int:
 
 
 def topk_scan(q_codes, q_len, q_rows, c_idx, c_len, c_ids, alphabet, k: int, out_idx, out_score,
-              winkler: bool = True, tile: int = 0, threads: int = 0) -> None:
+              winkler: bool = True, tile: int = 0, threads: int = 0,
+              greedy_pairs: Optional[torch.Tensor] = None) -> None:
     """One K23 launch: for each query row q_rows[r] (int64) of q_codes ([Q,
     W] int8/int32, rows contiguous; q_len [Q] int32, at most MAX_LEN at
     those rows) its k <= MAX_K best candidates of c_idx ([C, MAX_LEN] uint8
@@ -57,7 +58,10 @@ def topk_scan(q_codes, q_len, q_rows, c_idx, c_len, c_ids, alphabet, k: int, out
     ascending) go to out_idx[row] (int64 [Q, k]) and out_score[row] (float64
     [Q, k]); slots with no candidate keep what the caller put there. tile:
     the most candidates a shared-memory tile (0: as many as fit); threads:
-    a block's (0: 1,024). Launch count "topk_scan"."""
+    a block's (0: THREADS); greedy_pairs: None, or an int64 [1] tensor on
+    the device that the launch adds its count of pairs that ran the greedy
+    match to (the rest its screen or the empty-row rule decided). Launch
+    count "topk_scan"."""
     n, nc = q_rows.shape[0], c_idx.shape[0]
     if n == 0 or nc == 0:
         return
@@ -74,11 +78,15 @@ def topk_scan(q_codes, q_len, q_rows, c_idx, c_len, c_ids, alphabet, k: int, out
         raise ValueError(f"k = {k} and outputs {tuple(out_idx.shape)}: k in 1..{MAX_K}, [Q, k]")
     if alphabet.numel() > MAX_ALPHABET:
         raise ValueError(f"{alphabet.numel()} candidate chars: K23 takes {MAX_ALPHABET} at most")
+    if greedy_pairs is not None and (greedy_pairs.dtype != torch.int64 or greedy_pairs.numel() != 1
+                                     or greedy_pairs.device != q_codes.device):
+        raise ValueError(f"greedy_pairs must be one int64 on {q_codes.device}")
     _build.call("topk_scan", "strsim_topk_scan", ("topk_scan",), q_codes.device,
                 q_codes.data_ptr(), q_codes.stride(0), q_len.data_ptr(), q_rows.data_ptr(), n,
                 c_idx.data_ptr(), c_len.data_ptr(), c_ids.data_ptr(), nc, alphabet.data_ptr(),
                 alphabet.numel(), tile, k, int(winkler), threads, out_idx.data_ptr(),
-                out_score.data_ptr(), q_codes.element_size())
+                out_score.data_ptr(), None if greedy_pairs is None else greedy_pairs.data_ptr(),
+                q_codes.element_size())
 
 
 def finish_scores(m, t, prefix, la, lb, winkler: bool = True):

@@ -12,6 +12,7 @@
 // here; the test rewrites their launch syntax and their dynamic shared
 // memory declaration before compiling.
 #pragma once
+#include <math.h>
 #include <stdint.h>
 #include <stdio.h>
 #include <stdlib.h>
@@ -114,7 +115,7 @@ struct EmuRendezvous {
   std::mutex m;
   std::condition_variable cv;
   int arrived = 0;
-  unsigned long generation = 0;
+  std::atomic<unsigned long> generation{0};
   uint64_t filling[32], done[32];
 };
 
@@ -148,16 +149,22 @@ inline void emu_collect(unsigned mask, uint64_t v, uint64_t out[32]) {
   EmuRendezvous& r = emu_block->at(warp, mask);
   std::unique_lock<std::mutex> lock(r.m);
   r.filling[lane] = v;
-  const unsigned long generation = r.generation;
+  const unsigned long generation = r.generation.load();
   if (++r.arrived == __builtin_popcount(mask)) {
     memcpy(r.done, r.filling, sizeof r.done);
     r.arrived = 0;
-    ++r.generation;
+    r.generation.store(generation + 1);
     r.cv.notify_all();
   } else {
-    while (!r.cv.wait_for(lock, std::chrono::milliseconds(50), [&] { return r.generation != generation; }))
+    // a short spin first: woken by the condition variable, every lane would
+    // take the lock again in turn
+    lock.unlock();
+    for (int spin = 0; spin < 256 && r.generation.load() == generation; ++spin) std::this_thread::yield();
+    lock.lock();
+    while (!r.cv.wait_for(lock, std::chrono::milliseconds(50), [&] { return r.generation.load() != generation; }))
       if (emu_block->exited[warp].load() & mask) emu_fail("collective names a lane that returned", warp, mask);
   }
+  lock.unlock();  // done stays until every lane of the mask has reached the next collective
   memcpy(out, r.done, sizeof r.done);
 }
 
@@ -170,6 +177,19 @@ inline unsigned __ballot_sync(unsigned mask, int p) {
   return bits;
 }
 inline int __any_sync(unsigned mask, int p) { return __ballot_sync(mask, p) != 0; }
+
+// any lane's x, of any type of up to 64 bits (a double too)
+template <class T>
+T __shfl_sync(unsigned mask, T x, int src, int width = 32) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "a shuffle moves at most 64 bits");
+  uint64_t bits = 0, v[32];
+  memcpy(&bits, &x, sizeof(T));
+  emu_collect(mask, bits, v);
+  const int lane = threadIdx.x & 31;
+  T out;
+  memcpy(&out, &v[(lane & ~(width - 1)) + (src & (width - 1))], sizeof(T));
+  return out;
+}
 
 template <class T>
 T __shfl_up_sync(unsigned mask, T x, unsigned d, int width = 32) {
@@ -204,6 +224,15 @@ inline unsigned __reduce_max_sync(unsigned mask, unsigned x) {
   return most;
 }
 
+inline unsigned __reduce_add_sync(unsigned mask, unsigned x) {
+  uint64_t v[32];
+  emu_collect(mask, x, v);
+  unsigned sum = 0;
+  for (int k = 0; k < 32; ++k)
+    if (mask >> k & 1u) sum += (unsigned)v[k];
+  return sum;
+}
+
 inline void __syncwarp(unsigned mask = 0xFFFFFFFFu) {
   uint64_t v[32];
   emu_collect(mask, 0, v);
@@ -228,7 +257,25 @@ inline double __dadd_rn(double x, double y) { return x + y; }
 inline double __dmul_rn(double x, double y) { return x * y; }
 inline double __ddiv_rn(double x, double y) { return x / y; }
 
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  memcpy(&u, &x, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  memcpy(&x, &u, 4);
+  return x;
+}
+
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+inline unsigned __brev(unsigned x) {
+  unsigned r = 0;
+  for (int k = 0; k < 32; ++k) r |= (x >> k & 1u) << (31 - k);
+  return r;
+}
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 // 0xFF in each byte where x and y differ
 inline unsigned __vcmpne4(unsigned x, unsigned y) {
   unsigned r = 0;
@@ -265,8 +312,11 @@ inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned s) {
 template <class T>
 T __ldg(const T* p) { return *p; }
 
-// a shared-memory atomic: the lanes are threads of one process
+// a shared- or global-memory atomic: the lanes are threads of one process
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 
 inline unsigned char* emu_smem() { return emu_block->smem; }
 

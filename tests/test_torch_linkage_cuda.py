@@ -1,12 +1,16 @@
 """K23 (`csrc/topk_scan.cu`) and the port's top_k_matches on the card.
 
 K23 against its plain torch form (`topk_cuda.topk_plain`) on int8 and int32
-tiles, jaro and jaro_winkler, k = 1, 5 and 8, one tile and several; its
+tiles, jaro and jaro_winkler, k = 1, 5 and 8, one tile and several, and on
+the inputs of `linkage_cases.SCREEN_CASES` (its screen and queue), with its
+count of greedy pairs between the least any correct screen keeps and every
+pair; its
 float64 scores against the host finalize's bits (`compute`, whose f64
 finalize runs on the host); and top_k_matches against the benchmark's plain
 reference (`perfbench/reference/topk.py`) with more candidates than three
 shared-memory tiles hold, non-ASCII (int32) rows and rows past K23's width
-cap, all exact, with the call's counters and spans. Marked `cuda`; skipped
+cap, all exact, with the call's counters (K23's greedy pairs among them)
+and spans. Marked `cuda`; skipped
 where torch sees no CUDA device. On the card (which has no jax, which
 tests/conftest.py imports):
 
@@ -20,6 +24,7 @@ import pytest
 import torch
 
 import strsim_tpu_torch as st
+from linkage_cases import SCREEN_CASES, least_greedy_pairs, screen_inputs
 from strsim_tpu_torch.ops import _build, topk_cuda
 from strsim_tpu_torch.utils import encode as enc
 from strsim_tpu_torch.utils.metrics import RunMetrics
@@ -54,9 +59,10 @@ def _names(rng, n, alphabet=LETTERS, lo=0, hi=16):
     return out
 
 
-def _k23(q, c, k, winkler, tile, device):
+def _k23(q, c, k, winkler, tile, device, threads=0, greedy=None):
     """K23 over every query row of q against every row of c: ([Q, k] ids,
-    [Q, k] scores, -1 / NaN where none)."""
+    [Q, k] scores, -1 / NaN where none); `greedy`, an int64 [1] tensor on
+    the device, gets its count of greedy pairs added."""
     alphabet, c_idx = topk_cuda.candidate_indices(c.codes, c.lengths)
     rows = np.argsort(q.lengths, kind="stable").astype(np.int64)
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
@@ -64,7 +70,7 @@ def _k23(q, c, k, winkler, tile, device):
     out_s = torch.full((q.n, k), float("nan"), dtype=torch.float64, device=device)
     topk_cuda.topk_scan(dev(q.codes), dev(q.lengths), dev(rows), dev(c_idx), dev(c.lengths),
                         dev(np.arange(c.n, dtype=np.int32)), dev(alphabet), k, out_idx, out_s,
-                        winkler, tile)
+                        winkler, tile, threads, greedy)
     torch.cuda.synchronize()
     return out_idx.cpu(), out_s.cpu()
 
@@ -88,6 +94,23 @@ def test_k23_matches_plain(cuda, alphabet, winkler, k, tile):
     want_s = torch.where(torch.isinf(want_s), float("nan"), want_s).cpu()
     assert torch.equal(got_i, want_i.cpu())
     assert got_s.numpy().tobytes() == want_s.numpy().tobytes()
+
+
+@pytest.mark.parametrize("case", list(SCREEN_CASES))
+def test_k23_screen_inputs(cuda, case):
+    k, winkler, tile, threads = SCREEN_CASES[case]
+    qs, cs = screen_inputs(case)
+    q, c = enc.encode_column(qs, pad=enc.PAD_A), enc.encode_column(cs, pad=enc.PAD_B)
+    greedy = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got_i, got_s = _k23(q, c, k, winkler, tile, cuda, threads, greedy)
+    T = torch.from_numpy
+    want_i, want_s = topk_cuda.topk_plain(T(q.codes).to(cuda), T(q.lengths).to(cuda),
+                                          T(c.codes).to(cuda), T(c.lengths).to(cuda),
+                                          torch.arange(c.n, device=cuda), k, winkler)
+    want_s = torch.where(torch.isinf(want_s), float("nan"), want_s).cpu()
+    assert torch.equal(got_i, want_i.cpu())
+    assert got_s.numpy().tobytes() == want_s.numpy().tobytes()
+    assert least_greedy_pairs(qs, cs, k, winkler) <= int(greedy) <= q.n * c.n
 
 
 def test_k23_scores_have_the_host_finalize_bits(cuda):
@@ -127,8 +150,10 @@ def test_top_k_matches_against_the_reference(cuda):
     narrow_c = sum(n <= topk_cuda.MAX_LEN for n in c_lens)
     lanes = -(-narrow_q // topk_cuda.THREADS) * topk_cuda.THREADS * narrow_c
     rest = len(q_lens) * len(c_lens) - narrow_q * narrow_c
+    greedy = rm.counters.pop("topk.greedy_pairs")
     assert rm.counters == {"topk.pairs": len(q_lens) * len(c_lens), "topk.lane_pairs": lanes + rest,
                            "topk.launches": 1}
+    assert 0 < greedy <= narrow_q * narrow_c
     assert [s.name for s in rm.spans if s.parent >= 0] == [
         "strsim.topk.encode", "strsim.topk.stage", "strsim.topk.launch", "strsim.topk.plain",
         "strsim.topk.collect", "strsim.topk.finish"]

@@ -6,10 +6,13 @@ as `tests/test_torch_lane_kernels_cpu.py` compiles the lane-group kernels
 threads, the float64 intrinsics plain IEEE operations). Its C entry point
 takes int8 and int32 tiles, jaro and jaro_winkler, k = 1..8, one tile of
 candidates and several, blocks of several sizes, rows of 0, 1 and 32 chars,
-chars no candidate holds, fewer candidates than k, and the corpus's names;
-each query's ids and float64 scores must equal `topk_cuda.topk_plain`'s,
-exactly, and slots with no candidate keep what the caller put there.
-Skipped without g++.
+chars no candidate holds, fewer candidates than k, the corpus's names and
+the inputs of `linkage_cases.SCREEN_CASES` (its screen and queue: a
+one-letter alphabet, ties across chunk, queue and tile boundaries,
+alphabets above 32 chars); each query's ids and float64 scores must equal
+`topk_cuda.topk_plain`'s, exactly, and slots with no candidate keep what
+the caller put there. Its count of greedy pairs lies between the least
+any correct screen keeps and every pair. Skipped without g++.
 """
 import ctypes
 import json
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from linkage_cases import SCREEN_CASES, least_greedy_pairs, screen_inputs
 from strsim_tpu_torch.ops import _build, topk_cuda
 from strsim_tpu_torch.utils import encode as enc
 from test_torch_lane_kernels_cpu import CSRC, SHIM, _for_the_cpu
@@ -52,9 +56,10 @@ def _names(rng, n, alphabet=LETTERS, lo=0, hi=14):
     return ["".join(rng.choice(list(alphabet), rng.integers(lo, hi + 1))) for _ in range(n)]
 
 
-def _run(lib, qs, cs, k, winkler=True, tile=0, threads=64, dtype=None):
+def _run(lib, qs, cs, k, winkler=True, tile=0, threads=64, dtype=None, greedy=None):
     """K23's ids and scores for every query against every candidate, and the
-    plain form's (-1 / NaN where none)."""
+    plain form's (-1 / NaN where none); `greedy`, an int64 [1] tensor, gets
+    K23's count of greedy pairs added."""
     q, c = enc.encode_column(qs, pad=enc.PAD_A), enc.encode_column(cs, pad=enc.PAD_B)
     q_codes = q.codes.astype(dtype) if dtype else q.codes
     alphabet, c_idx = topk_cuda.candidate_indices(c.codes, c.lengths)
@@ -68,7 +73,8 @@ def _run(lib, qs, cs, k, winkler=True, tile=0, threads=64, dtype=None):
     rc = lib.strsim_topk_scan(qc.data_ptr(), qc.stride(0), ql.data_ptr(), qr.data_ptr(), q.n,
                               ci.data_ptr(), cl.data_ptr(), cid.data_ptr(), c.n, al.data_ptr(),
                               al.numel(), tile, k, int(winkler), threads, ids.data_ptr(),
-                              scores.data_ptr(), qc.element_size(), None)
+                              scores.data_ptr(), None if greedy is None else greedy.data_ptr(),
+                              qc.element_size(), None)
     assert rc == 0
     want_i, want_s = topk_cuda.topk_plain(qc, ql, T(c.codes), cl, torch.arange(c.n), k, winkler)
     return ids, scores, want_i, torch.where(torch.isinf(want_s), float("nan"), want_s)
@@ -113,23 +119,50 @@ def test_k23_on_the_corpus_names(lib):
     _same(*_run(lib, qs, list(rng.permutation(names)), 5, threads=128))
 
 
+@pytest.mark.parametrize("case", list(SCREEN_CASES))
+def test_k23_screen_inputs(lib, case):
+    k, winkler, tile, threads = SCREEN_CASES[case]
+    qs, cs = screen_inputs(case)
+    _same(*_run(lib, qs, cs, k, winkler, tile, threads))
+
+
+@pytest.mark.parametrize("case", ["corpus", "one_letter", "ties_across_boundaries"])
+def test_k23_counts_its_greedy_pairs(lib, case):
+    """The counter lies between the pairs that any correct screen keeps (a
+    best score by the real m at or above the query's final k-th) and every
+    pair; on the corpus the screen keeps under a third of them."""
+    k, winkler, tile, threads = SCREEN_CASES[case]
+    qs, cs = screen_inputs(case)
+    greedy = torch.zeros(1, dtype=torch.int64)
+    _same(*_run(lib, qs, cs, k, winkler, tile, threads, greedy=greedy))
+    counted, pairs = int(greedy), len(qs) * len(cs)
+    assert least_greedy_pairs(qs, cs, k, winkler) <= counted <= pairs
+    if case == "corpus":
+        assert counted < pairs / 3
+    greedy.zero_()
+    _run(lib, qs, cs, k, winkler, tile, threads)  # no counter: nothing added
+    assert int(greedy) == 0
+
+
 def test_k23_tile_sizes(lib):
-    """A tile holds the dictionary's 1,105 names at blocks of 1,024 threads
-    (26 chars), and fewer at larger alphabets."""
+    """A tile holds the dictionary's 1,105 names at the default block (26
+    chars), and fewer at larger alphabets; never more than a queue entry's
+    11-bit candidate field."""
     assert lib.strsim_topk_max_tile(26, 0) >= 1105
     assert lib.strsim_topk_max_tile(26, 0) < lib.strsim_topk_max_tile(26, 64)
     assert lib.strsim_topk_max_tile(topk_cuda.MAX_ALPHABET, 0) < lib.strsim_topk_max_tile(26, 0)
     assert lib.strsim_topk_max_tile(topk_cuda.MAX_ALPHABET, 0) > 100
+    assert lib.strsim_topk_max_tile(0, 32) == 2048
 
 
 def test_k23_refuses_what_it_does_not_take(lib):
     z = torch.zeros(64, dtype=torch.int64)
     p = z.data_ptr()
     # q_codes, stride, q_len, q_rows, nq, c_idx, c_len, c_ids, nc, alphabet, na, tile, k,
-    # winkler, threads, out_idx, out_score, elem_bytes, stream
-    base = [p, 1, p, p, 1, p, p, p, 1, p, 1, 0, 5, 1, 0, p, p, 1, None]
+    # winkler, threads, out_idx, out_score, greedy_pairs, elem_bytes, stream
+    base = [p, 1, p, p, 1, p, p, p, 1, p, 1, 0, 5, 1, 0, p, p, None, 1, None]
     for at, value in ((12, 0), (12, topk_cuda.MAX_K + 1), (10, topk_cuda.MAX_ALPHABET + 1),
-                      (14, 48), (14, 2048), (17, 2), (4, 0)):
+                      (14, 48), (14, 2048), (18, 2), (4, 0)):
         args = list(base)
         args[at] = value
         assert lib.strsim_topk_scan(*args) != 0, (at, value)
