@@ -100,21 +100,12 @@ Phases, one line of findings each (any failure exits non-zero):
      and on no pairs path), its spans and counters printed, every query's
      own name first at 1.0 and 4,096 sampled queries byte-identical to the
      plain route;
-     bench_torch.py in this process at a reduced size (200,000 pairs, 3 timed
-     passes, 40,000 wide), its launch counts zeroed before and read after
-     (K11 and the kernels of its sections must launch), its JSON line
-     printed;
-     tools/ab_torch_jaro.py, tools/ab_torch_myers.py, then
-     tools/ab_torch_multiset.py, in this process at a reduced size (one
-     width a probe: w15, w255, w383, w31 for the jaro probes; pallas w15,
-     swar w15, fused_lj L = 31 for the Myers ones; w15 for the multiset
-     ones; 2 trip counts), the launch counts zeroed before each and read
-     after (the jaro tool: K2 and K12-K15, both clips and all four modes;
-     the Myers tool: K1, K2, K5 and K16-K19, K16 in both loop forms; the
-     multiset tool: K3, K4 and K20-K22, K20 in all three modes; no probe
-     launches on the main path, the forced paths or bench_torch.py's run),
-     each JSON line printed;
-  5. a {"kernels": [...]} JSON line, the card line again, and last
+     no probe (K12-K22) launches on the main path, the forced paths or the
+     linkage path, nor K11 on the main path;
+  5. a {"kernels": [...]} JSON line (each kernel's `launches` on the main,
+     forced or linkage pass that reaches it, 0 for K11 and the probes, which
+     none reaches; `launches_phase3`, its launches in phase 3's checks,
+     counted from zero), the card line again, and last
      {"ok": true, "device": {...}}. Each phase-3 case also goes as a JSON line
      to chiprun_out/chip_smoke_kernels.jsonl.
 
@@ -124,7 +115,6 @@ Stops and reaps every process it starts before it exits (`stop_children`).
 from __future__ import annotations
 
 import contextlib
-import importlib.util
 import inspect
 import json
 import multiprocessing
@@ -203,32 +193,14 @@ TOPK_TILE = 256
 TOPK_WIDE = str.maketrans({"a": "\u00e4", "y": "\U0001F600"})
 TOPK_QUERIES = 1_000_000
 TOPK_SAMPLE = 4_096
-# K11 and the kernels of bench_torch.py's sections (the five measures alone
-# and together on make_pairs, levenshtein, jaro_winkler, jaccard and osa on
-# make_wide_pairs): each must launch on its run
-BENCH_KERNELS = ("warm", "levenshtein_myers", "jaro_scan", "multiset_rank", "multiset_hist",
-                 "lev_jaro_fused", "osa_scan")
-BENCH_ARGS = ("--n-pairs", "200000", "--passes", "3", "--n-wide", "40000")
-BENCH_ONLY = ("warm",)  # launched on bench_torch.py's run, not the main path's
 # The probes, K12-K15 (strsim_tpu_torch/probes/jaro.py), K16-K19
-# (probes/myers.py) and K20-K22 (probes/multiset.py): launched on phase 3 and
-# on their tools' runs
-# (PROBE_ARGS, in this process), never on a main path. Each tool must launch
-# its probes, their baselines and each variant's count.
-PROBE_TOOLS = {
-    "ab_torch_jaro": ("jaro_flags_probe", "jaro_packed_t", "jaro_clipped", "jaro_ablated",
-                      "jaro_scan", "jaro_clipped.row", "jaro_ablated.full",
-                      "jaro_ablated.no_tcount", "jaro_ablated.scan_only", "jaro_ablated.eqb_only"),
-    "ab_torch_myers": ("myers_eq_scan", "myers_ineq", "myers_swar", "fused_lev_jaro",
-                       "myers_eq_scan.unroll", "levenshtein_myers", "jaro_scan", "lev_jaro_fused"),
-    "ab_torch_multiset": ("multiset_unrolled", "multiset_swar", "multiset_blocked",
-                          "multiset_unrolled.select", "multiset_unrolled.tree",
-                          "multiset_unrolled.astype", "multiset_rank", "multiset_hist"),
-}
+# (probes/myers.py) and K20-K22 (probes/multiset.py): launched on phase 3,
+# never on a main path
 PROBE_ONLY = ("jaro_flags_probe", "jaro_packed_t", "jaro_clipped", "jaro_ablated",
               "myers_eq_scan", "myers_ineq", "myers_swar", "fused_lev_jaro",
               "multiset_unrolled", "multiset_swar", "multiset_blocked")
-PROBE_ARGS = ("--quick", "--trips", "2,6")
+# launched on phase 3 alone: K11 and the probes
+PHASE3_ONLY = ("warm", *PROBE_ONLY)
 # K11's cases: (label, shape, elements skipped at the front of the flattened
 # tensor): bench.py's tile, a block's worth, an offset view (a 4-byte shift
 # from the 16-byte boundary of the output), n < 4 and n % 4 != 0
@@ -1100,7 +1072,7 @@ def check_native(st, workloads, oracle_sets) -> None:
             valid = a.validity[rows] & b.validity[rows]
             for k, m in enumerate(measures):
                 got = native_compute(m, a.codes[rows], a.lengths[rows], b.codes[rows],
-                                     b.lengths[rows], valid, threads=0)
+                                     b.lengths[rows], valid)
                 if got.tobytes() != want[:, k].tobytes():
                     bad = int(np.nonzero(got != want[:, k])[0][0])
                     raise AssertionError(f"native {label} {m}: row {rows[bad]} got {got[bad]!r} "
@@ -1534,9 +1506,11 @@ def main(argv) -> int:
     print("phase 3 kernels vs plain torch on the card:", flush=True)
     if only is None or "jaro_scan" in only:
         print_residency()
+    _build.reset_launch_counts()
     summary, cases = check_kernels(device, clock_hz, only, topk_ptxas)
     if only is not None:
         return 0 if set(only) <= set(summary) else 2
+    phase3_launches = require_launched("phase 3", PHASE3_ONLY)
 
     print(f"phase 4 end to end (phases 1-3 took {time.perf_counter() - t_start:.1f} s):", flush=True)
     sys.path.insert(0, str(ROOT))
@@ -1549,10 +1523,10 @@ def main(argv) -> int:
     _build.reset_launch_counts()
     scores, five_metrics, all_metrics, jaccard_metrics, jaro_metrics = run_workloads(st, workloads)
     launches = require_launched("the main path", [k for k in (*KERNELS, *VARIANTS) if k not in
-                                                  (*FORCED_KERNELS, *BENCH_ONLY, *PROBE_ONLY,
+                                                  (*FORCED_KERNELS, *PHASE3_ONLY,
                                                    *LINKAGE_KERNELS)])
     print(f"  launches on the main path: {launches}", flush=True)
-    require_not_launched("the main path", (*PROBE_ONLY, *LINKAGE_KERNELS))
+    require_not_launched("the main path", (*PHASE3_ONLY, *LINKAGE_KERNELS))
     for label, *_ in workloads:
         pass_reckoning(label, "five", FIVE, five_metrics[label], cases, st.get_config().impls())
         pass_reckoning(label, "all 14", ALL, all_metrics[label], cases, st.get_config().impls())
@@ -1591,39 +1565,11 @@ def main(argv) -> int:
     del workloads, scores
     launches.update((k, v) for k, v in run_linkage(st).items() if k in LINKAGE_KERNELS)
 
-    print(f"  bench_torch.py {' '.join(BENCH_ARGS)}:", flush=True)
-    import bench_torch
-
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    rc = bench_torch.main([*BENCH_ARGS, "--details", str(OUT_DIR / "bench_torch_smoke.json")])
-    if rc != 0:
-        raise AssertionError(f"bench_torch.py exited {rc}")
-    bench_launches = require_launched("bench_torch.py", BENCH_KERNELS)
-    require_not_launched("bench_torch.py", PROBE_ONLY)
-    launches["warm"] = bench_launches["warm"]
-    print(f"  bench_torch.py done in {time.perf_counter() - t0:.1f} s; its launches: "
-          f"{bench_launches}", flush=True)
-
-    for tool, tool_kernels in PROBE_TOOLS.items():
-        print(f"  tools/{tool}.py {' '.join(PROBE_ARGS)}:", flush=True)
-        spec = importlib.util.spec_from_file_location(tool, ROOT / "tools" / f"{tool}.py")
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc = module.main([*PROBE_ARGS, "--out", str(OUT_DIR / f"{tool}_smoke.json")])
-        if rc != 0:
-            raise AssertionError(f"tools/{tool}.py exited {rc}")
-        probe_launches = require_launched(f"tools/{tool}.py", tool_kernels)
-        launches.update((k, probe_launches[k]) for k in PROBE_ONLY if k in tool_kernels)
-        print(f"  tools/{tool}.py done in {time.perf_counter() - t0:.1f} s; its launches: "
-              f"{probe_launches}", flush=True)
-
     print(f"phase 5 done in {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], "library_ms": None, **summary[name]}
+         "launches": launches.get(name, 0), "launches_phase3": phase3_launches.get(name, 0),
+         "library_ms": None, **summary[name]}
         for name, (src, tpu) in KERNELS.items()
     ]
     for k in VARIANTS:

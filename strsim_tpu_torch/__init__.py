@@ -15,8 +15,7 @@ to the reference and to `strsim_tpu`:
           -> exact f64 finalize on the host (native/, ops/finalize.py).
 
 The native host layer (native/: a C++ library built with g++ at first use)
-encodes, packs, finalizes, scores the host rows and gives bench_torch.py its
-single-core baseline.
+encodes, packs, finalizes and scores the host rows.
 
 The default config runs on "cuda" and raises without a GPU; pass
 StrsimConfig(device="cpu") to run the plain torch versions. This package

@@ -59,7 +59,9 @@ class StrsimConfig:
     # When at most this many rows need kernel math, score them on the host
     # (the `fallback` scorer) instead: a size policy for tiny inputs, where
     # the host is faster than a device round trip; not a fallback. Set from
-    # the crossover bench_torch.py measures: on an H100 80GB HBM3 (700 W) and
+    # the crossover that the port's first benchmark harness (since removed)
+    # measured; PERF.md's Findings name that run, and no tool in the repo
+    # measures it now. On an H100 80GB HBM3 (700 W) and
     # its host, the native library on every core beat the device up to 922
     # rows of short names (make_pairs) but only up to 8 rows of 48..511
     # chars (make_wide_pairs), whose scalar DP costs grow as la * lb; the

@@ -167,8 +167,6 @@ def compute_scores(
 
         with maybe_span(metrics, "strsim.partition"):
             buckets = bucket_rows(idx, la, lb, cfg)
-            if metrics is not None:
-                metrics.count("partition.keys", partition_keys(buckets, la, lb, cfg))
         # dispatch every bucket first (uploads and kernels queue on the stream),
         # then collect and finalize in order
         pending = []
@@ -245,23 +243,9 @@ def bucket_rows(idx, la, lb, cfg: StrsimConfig) -> Dict[int, np.ndarray]:
     if not idx.size:
         return {}
     widths, rank_of = _ladder(cfg)
-    order, ends, _ = nb.order_rows(idx, la, lb, rank_of, widths.size)
+    order, ends = nb.order_rows(idx, la, lb, rank_of, widths.size)
     starts = np.concatenate([[0], ends[:-1]])
     return {int(w): order[lo:hi] for w, lo, hi in zip(widths, starts, ends) if hi > lo}
-
-
-def partition_keys(buckets: Dict[int, np.ndarray], la, lb, cfg: StrsimConfig) -> int:
-    """The size of `bucket_rows`' count table for its result `buckets`:
-    (rank of the widest bucket + 1) x (largest la + lb on the ladder + 1),
-    the last row of each bucket holding its largest la + lb; 0 when no pass
-    ran."""
-    ladder = [w for w in buckets if w >= 0]
-    if not ladder:
-        return 1 if buckets else 0
-    widths, _ = _ladder(cfg)
-    rank = int(np.searchsorted(widths, max(ladder)))
-    top_sum = max(int(la[buckets[w][-1]]) + int(lb[buckets[w][-1]]) for w in ladder)
-    return (rank + 1) * (top_sum + 1)
 
 
 def _narrow_bucket(cfg: StrsimConfig, a, b, sel, width: int):
@@ -398,7 +382,7 @@ def _host_rows(out, measures, a, b, sel, cfg, metrics=None):
         if cfg.fallback == "native":
             for m in measures:
                 out[m][sel] = nb.native_compute(m, a.codes[sel], a.lengths[sel], b.codes[sel],
-                                                b.lengths[sel], threads=0)
+                                                b.lengths[sel])
         else:
             for i in sel:
                 sa = enc.decode_row(a.codes[i], int(a.lengths[i]))

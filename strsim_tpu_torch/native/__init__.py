@@ -2,9 +2,8 @@
 first use (build.py) and called through ctypes (binding.py).
 
 It encodes string columns into tiles, orders the device rows by bucket,
-packs buckets, finalizes and scatters scores, scores host rows on every
-core, and gives the single-core baseline that bench_torch.py compares the
-device with. Nothing builds at import.
+packs buckets, finalizes and scatters scores, and scores host rows on every
+core. Nothing builds at import.
 """
 from strsim_tpu_torch.native.binding import (
     FINALIZE_FIELDS,

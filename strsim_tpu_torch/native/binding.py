@@ -209,14 +209,13 @@ def _vector(name: str, arr: np.ndarray, dtype) -> np.ndarray:
 
 
 def order_rows(idx: np.ndarray, la: np.ndarray, lb: np.ndarray, rank_of: np.ndarray,
-               n_ranks: int) -> Tuple[np.ndarray, np.ndarray, int]:
+               n_ranks: int) -> Tuple[np.ndarray, np.ndarray]:
     """Rows `idx` (int64) ordered by rank, then by la + lb, ties in idx's
     order: one stable counting sort, one thread. A row's rank is
     rank_of[max(la, lb)] (int32; a row longer than rank_of's last length
     takes rank 0), and rank 0 takes one key, so its rows keep idx's order.
     Returns (the ordered rows, int64 [len(idx)]; each rank's end in them,
-    int64 [n_ranks]; the count table's size, (largest rank + 1) x (largest
-    la + lb at a rank above 0, plus 1)). Raises on a wrong dtype or shape,
+    int64 [n_ranks]). Raises on a wrong dtype or shape,
     a row outside la, a negative length, or a rank outside 0..n_ranks - 1."""
     idx = _vector("idx", idx, np.int64)
     la, lb = _vector("la", la, np.int32), _vector("lb", lb, np.int32)
@@ -234,7 +233,7 @@ def order_rows(idx: np.ndarray, la: np.ndarray, lb: np.ndarray, rank_of: np.ndar
         row = int(idx[-keys - 1])
         raise ValueError(f"idx[{-keys - 1}] = {row}: outside la's {la.size} rows, a negative "
                          f"length, or a rank outside 0..{n_ranks - 1}")
-    return out, ends, int(keys)
+    return out, ends
 
 
 def ragged(codes: np.ndarray, lengths: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -248,10 +247,10 @@ def ragged(codes: np.ndarray, lengths: np.ndarray) -> Tuple[np.ndarray, np.ndarr
 
 
 def native_compute(measure: str, codes_a: np.ndarray, lengths_a, codes_b: np.ndarray, lengths_b,
-                   validity: Optional[np.ndarray] = None, threads: int = 1) -> np.ndarray:
+                   validity: Optional[np.ndarray] = None) -> np.ndarray:
     """f64 scores of one measure by the scalar C++ kernels (the reference's
-    algorithms and evaluation order): threads=1 is the single-core baseline,
-    0 every core. NaN where `validity` is False."""
+    algorithms and evaluation order) on every core. NaN where `validity` is
+    False."""
     n = len(lengths_a)
     if codes_a.shape[0] != n or codes_b.shape[0] != n or len(lengths_b) != n:
         raise ValueError("codes and lengths of both sides must have the same rows")
@@ -260,10 +259,7 @@ def native_compute(measure: str, codes_a: np.ndarray, lengths_a, codes_b: np.nda
     val = None if validity is None else _int8_vector("validity", validity, n)
     out = np.empty(n, dtype=np.float64)
     args = (MEASURE_IDS[measure], _addr(fa), _addr(oa), _addr(fb), _addr(ob), _addr(val), n)
-    if threads == 1:
-        get_lib().strsim_compute(*args, _addr(out))
-    else:
-        get_lib().strsim_compute_mt(*args, threads, _addr(out))
+    get_lib().strsim_compute_mt(*args, 0, _addr(out))
     return out
 
 

@@ -120,7 +120,6 @@ def get_lib() -> ctypes.CDLL:
                 "strsim_pack_bucket": (I64, [P, P, I32, P, P, P, I64, I32, I32, I32, I32, P, P,
                                              I64]),
                 "strsim_order_rows": (I64, [P, I64, P, P, I64, P, I64, I32, P, P]),
-                "strsim_compute": (None, [I32, P, P, P, P, P, I64, P]),
                 "strsim_compute_mt": (None, [I32, P, P, P, P, P, I64, I32, P]),
                 "strsim_phonetic_codes": (None, [I32, P, P, P, I64, I32, I32, P, P]),
                 "strsim_finalize_scatter": (None, [I32, P, P, P, P, P, P, I64, P]),

@@ -10,15 +10,12 @@ reports as the card's maximum. Operations are counted for this data, as a
 floor: equality words from a per-row table, each recurrence over its own
 row's words (ceil(pattern length / 32)) and steps, multisets by histogram.
 
-`roofline_report` puts the bound of each bucket of a pass (every kernel the
-router sends the bucket's stats to) beside the bucket's measured device
-time. The counterpart of `strsim_tpu/ops/roofline.py`, which holds the TPU's
+The counterpart of `strsim_tpu/ops/roofline.py`, which holds the TPU's
 envelope; no number of it carries over.
 """
 from __future__ import annotations
 
 import subprocess
-from typing import Dict, List
 
 import numpy as np
 
@@ -208,35 +205,3 @@ def route_flags(kernel: str, routes: dict) -> dict:
     if kernel == "jaro_scan" and "prefix" in on:
         return {"with_prefix": True}
     return {}
-
-
-def roofline_report(buckets: List[dict], clock_hz: float) -> Dict[str, object]:
-    """Each bucket of a pass beside its bound. A bucket: {"width", "dtype"
-    (torch dtype name), "lens" ([2, rows] of its rows), "routes" (stat ->
-    kernel or "plain"), "fields" (stats it outputs), "measured_ms" (its
-    device time)}. Its bound: its rows' chars and lengths read once and its
-    int32 stats written once, over the memory rate, against the operations
-    of every kernel it routes to (`work_ops`) over the INT32 peak; the plain
-    forms' operations are not counted (a floor). Returns {"buckets": {width:
-    {bound_ms, bound_by, measured_ms, share}}, "bound_ms", "measured_ms",
-    "share"}, share = bound / measured."""
-    out, total_bound, total_measured = {}, 0.0, 0.0
-    for bk in buckets:
-        la, lb = (np.asarray(x, dtype=np.int64) for x in bk["lens"])
-        elem = 1 if bk["dtype"] == "int8" else 4
-        t_bytes = float(np.sum((la + lb) * elem + 8 + 4 * len(bk["fields"]))) / HBM_BYTES_PER_S
-        kernels = sorted(set(bk["routes"].values()) - {"plain"})
-        ops = sum(work_ops(k, route_flags(k, bk["routes"]), la, lb) for k in kernels)
-        t_ops = ops / (INT32_LANES * clock_hz)
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        out[bk["width"]] = {
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "measured_ms": bk["measured_ms"],
-            "share": bound_ms / bk["measured_ms"],
-            "kernels": kernels,
-        }
-        total_bound += bound_ms
-        total_measured += bk["measured_ms"]
-    return {"buckets": out, "bound_ms": total_bound, "measured_ms": total_measured,
-            "share": total_bound / total_measured if total_measured else None}

@@ -4,9 +4,9 @@
 on the card; `warm_plain` is the same function in plain torch. The
 counterpart of bench.py's `k` (bench.py:685), a Pallas kernel of the same
 body that bench.py ran once on an [8, 128] int32 tile to pay the TPU
-compiler's first initialisation. bench_torch.py launches it once after the
-kernels' build and reports that launch's time; chip_smoke.py holds it to
-`warm_plain`. It has no CPU role: on a CPU tensor it raises.
+compiler's first initialisation. No engine path launches it; chip_smoke.py
+holds it to `warm_plain` and times it. It has no CPU role: on a CPU tensor it
+raises.
 """
 from __future__ import annotations
 

@@ -1,11 +1,8 @@
-"""The benchmark entry point and what it stands on, on the CPU: K11's plain
+"""K11 and the measuring pieces beside the engine, on the CPU: K11's plain
 version against row 11's Pallas body in interpret mode; no CPU fallback in
 K11's wrapper or the device timing; the H100 bound of ops/roofline.py on
-hand-worked cases, with no second copy in chip_smoke.py; bench_torch.py's
-CPU smoke and its refusal without a card; and the imports of the port's new
-modules."""
-import json
-import os
+hand-worked cases, with no second copy in chip_smoke.py; chip_smoke.py
+leaving no process behind; and the imports of the port's new modules."""
 import re
 import subprocess
 import sys
@@ -74,20 +71,6 @@ def test_bound_on_hand_worked_cases():
     assert by == "bytes" and ms == pytest.approx(8192 / 3.35e12 * 1e3, rel=1e-12)
 
 
-def test_roofline_report_sums_the_routed_kernels():
-    lens = (np.array([40, 12]), np.array([33, 12]))
-    routes = {"lev_d": "levenshtein_myers", "inter": "multiset_rank", "prefix": "plain"}
-    report = roofline.roofline_report(
-        [{"width": 47, "dtype": "int8", "lens": lens, "routes": routes, "fields": ("inter", "lev_d"),
-          "measured_ms": 0.5}], 1.98e9)
-    la, lb = (np.asarray(x, np.int64) for x in lens)
-    ops = roofline.work_ops("levenshtein_myers", {}, la, lb) + roofline.work_ops("multiset_rank", {}, la, lb)
-    bucket = report["buckets"][47]
-    assert bucket["bound_ms"] == pytest.approx(ops / (132 * 64 * 1.98e9) * 1e3, rel=1e-12)
-    assert bucket["kernels"] == ["levenshtein_myers", "multiset_rank"]
-    assert report["share"] == pytest.approx(bucket["bound_ms"] / 0.5)
-
-
 def test_chip_smoke_holds_no_second_copy_of_the_bound():
     sys.path.insert(0, str(ROOT))
     import chip_smoke
@@ -139,37 +122,10 @@ def test_chip_smoke_leaves_no_process_behind(tmp_path, no_exit_stop):
     assert not Path(f"/proc/{tracker}").exists()  # gone the moment the script has exited
 
 
-def test_bench_torch_cpu_smoke(tmp_path):
-    details = tmp_path / "details.json"
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    res = subprocess.run([sys.executable, "bench_torch.py", "--device", "cpu", "--n-pairs", "2000",
-                          "--details", str(details)], cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=120)
-    assert res.returncode == 0, res.stderr[-3000:]
-    line = json.loads(res.stdout.strip().splitlines()[-1])
-    assert line["device"] == "cpu" and line["metric"] == "levenshtein_pairs_per_sec"
-    assert line["unit"] == "pairs/s" and line["value"] > 0 and line["vs_baseline"] > 0
-    d = json.loads(details.read_text())
-    assert set(d["measures"]) == {"levenshtein", "jaro", "jaro_winkler", "jaccard", "sorensen_dice"}
-    for section in (*d["measures"].values(), d["fused"]):
-        assert all(section["bit_exact_parity"].values()) and section["bit_exact_parity"]
-        assert len(section["pairs_per_sec"]) == 5 and section["encode_route"] == "native_objects"
-        assert section["resident_pairs_per_sec"] == "not measured"
-    assert d["encode"]["equal"] and d["crossover"] == "not measured"
-    assert d["first_launch_ms"] == "not measured" and "native" in d["kernel_build_s"]
-
-
-def test_bench_torch_refuses_without_a_card():
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
-    res = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0 and "metric" not in res.stdout
-
-
 def test_new_modules_import_neither_jax_nor_strsim_tpu():
     code = (
         "import sys\n"
-        "import bench_torch, chip_smoke, bench\n"
+        "import chip_smoke, bench\n"
         "from strsim_tpu_torch import native\n"
         "from strsim_tpu_torch.native import binding, build\n"
         "from strsim_tpu_torch.ops import roofline, warm_cuda\n"
@@ -182,7 +138,6 @@ def test_new_modules_import_neither_jax_nor_strsim_tpu():
                          timeout=120)
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr
     pattern = re.compile(r"^\s*(import|from)\s+(jax|strsim_tpu)\b", re.M)
-    for path in [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
-                 *(ROOT / "strsim_tpu_torch").rglob("*.py")]:
+    for path in [ROOT / "chip_smoke.py", *(ROOT / "strsim_tpu_torch").rglob("*.py")]:
         assert not pattern.search(path.read_text()), path
     assert native_build.SRC.parent == ROOT / "strsim_tpu_torch" / "native"

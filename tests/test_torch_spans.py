@@ -4,9 +4,8 @@ call tree each piece of work belongs to; the call's own time outside its
 parts is small; the phase fields are the sums of their spans, exactly;
 without a RunMetrics no span, clock read or profiler range is made and the
 scores are byte-equal; under torch.profiler the spans are ranges of the
-trace, nested as in memory and on no device timeline; the partition counter
-sums each call's count table; and the benchmark's readers of the spans and
-the staging counter read a rehearsed run."""
+trace, nested as in memory and on no device timeline; and the benchmark's
+readers of the spans and the staging counter read a rehearsed run."""
 import json
 import pathlib
 import subprocess
@@ -19,7 +18,6 @@ import torch
 
 from strsim_tpu_torch import config as torch_config
 from strsim_tpu_torch.models import pipeline as tpipe
-from strsim_tpu_torch.native import binding as tnb
 from strsim_tpu_torch.utils import metrics as tmetrics
 from strsim_tpu_torch.utils.metrics import PHASES, RunMetrics
 
@@ -160,26 +158,8 @@ def test_stage_bytes_count_the_padded_staging(traced):
     rm, _ = traced
     want = sum((bm.rows + bm.padded_rows) * (2 * bm.width * np.dtype(bm.dtype).itemsize + 8)
                for bm in rm.buckets.values())
-    assert set(rm.counters) == {"stage.bytes", "partition.keys"}
+    assert set(rm.counters) == {"stage.bytes"}
     assert rm.counters["stage.bytes"] == want and want > 0
-
-
-def test_partition_keys_count_each_calls_count_table(traced, cfg):
-    """The counter `partition.keys` sums the size of each call's count table
-    (`bucket_rows`' native pass): the three calls' inputs ordered again by
-    the native pass give the same sum; the 5-row call runs no pass."""
-    rm, _ = traced
-    want = 0
-    for (a, b), n in ((_columns(20000), 20000), (_columns(5, 6), 5), (_columns(3000, 7), 3000)):
-        ea, eb = tpipe.enc.encode_pair_with_route(a, b)[:2]
-        _, la, lb, _, _, idx = tpipe.classify(ea, eb, cfg)
-        if idx.size <= cfg.host_short_circuit_rows:
-            continue
-        widths, rank_of = tpipe.bucket_ranks(cfg.buckets, cfg.overflow_policy, cfg.max_extend_len)
-        keys = tnb.order_rows(idx, la, lb, rank_of, widths.size)[2]
-        assert keys == tpipe.partition_keys(tpipe.bucket_rows(idx, la, lb, cfg), la, lb, cfg)
-        want += keys
-    assert rm.counters["partition.keys"] == want and want > 0
 
 
 def test_as_dict_holds_spans_and_counters(traced):
